@@ -5,13 +5,21 @@
 
 Phases, one line each:
   1. environment: versions, device, nvidia-smi's name and power limit;
-  2. build every CUDA kernel of the path from csrc/ with nvcc (sm_90a);
-  3. each kernel against its plain PyTorch form on the card;
-  4. the SID serving path Bayer_01_Demosaic_03_sRGB_07_01_13_11 end to end on
-     two 2848x4256 frames (patch 512, stride 480, chunk 8), with the kernel
-     launches counted, and its output against the same path with the plain
-     forms on the same two frames;
-  5. times with CUDA events, and each kernel's bound.
+  2. build every CUDA kernel of csrc/ with nvcc (sm_90a), all at once;
+  3. each kernel against its plain PyTorch form on the card: bilateral and
+     median at radii 1-7, fast NLM at block radii 1-7 with per-image search
+     radii 1-7; C = 3 and C = 1, and a ragged 520x776 frame;
+  4. the two serving paths end to end on two 2848x4256 frames (patch 512,
+     stride 480, chunk 8): the SID path with bilateral,
+     Bayer_01_Demosaic_03_sRGB_07_01_13_11, and with median then fast NLM,
+     Bayer_01_Demosaic_03_sRGB_08_09_01_13_11.  Each is driven with every
+     launch count set to 0 just before it and read just after, and its output
+     is held against the same path with the plain forms on the same frames;
+  5. the zoo: every op of the three pools, native and (where it has one)
+     proxy, with the bank's weights, on a small input on the card against
+     the same pipeline on the CPU;
+  6. times with CUDA events: each path at f32 and bf16 CNN storage, and each
+     kernel at (8, 512, 512, 3) with every radius 4, beside its bound.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 tools/profile_torch_serving.py imports the serving set-up from here.
@@ -28,21 +36,39 @@ from pathlib import Path
 
 import torch
 
-from reconfigisp_tpu_torch import Pipeline, convert, precision
+from reconfigisp_tpu_torch import Pipeline, convert, pool, precision
 from reconfigisp_tpu_torch.deploy import make_serving_fn
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
+from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
+from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.parallel.tiling import tile_positions
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
 
 ROOT = Path(__file__).resolve().parent
-ARCH = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"
+BANK = ROOT / "experiments" / "proxies" / "default.ckpt"
+SLICE1 = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"   # bilateral
+SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"   # median, fast NLM
+PATHS = {SLICE1: ("bilateral",), SLICE2: ("median", "fastnlm")}
 FRAME = (2848, 4256)   # Sony frame of SID, 12.1 MP
 PATCH, STRIDE, CHUNK = 512, 480, 8
-KERNEL_TOL = 2e-5      # kernel vs plain form: expf in both, sums reordered
-E2E_TOL = 1e-4         # whole path, kernel vs plain bilateral, TF32 off
+E2E_TOL = 1e-4         # whole path, kernels vs plain forms, TF32 off
+ZOO_TOL = 1e-4         # one op on the card vs on the CPU: conv sums reordered
 BF16_TOL = 5e-2        # whole path, bf16 vs f32 CNN storage: 8-bit mantissa
                        # through 14 conv layers
+
+# name -> (module, plain form, params per image, tolerance against the plain
+# form, TPU kernel it replaces).  Tolerances: bilateral and fast NLM use expf
+# on both sides with sums reordered (bilateral) or rounded step by step (fast
+# NLM); the median selects one of the input values, so it is exact.
+KERNELS = {
+    "bilateral": (kb, kb.bilateral_plain, 3, 2e-5,
+                  "reconfigisp_tpu/ops/pallas_kernels.py:113"),
+    "median": (km, km.median_plain, 1, 0.0,
+               "reconfigisp_tpu/ops/pallas_kernels.py:218"),
+    "fastnlm": (kf, kf.fastnlm_plain, 3, 5e-5,
+                "reconfigisp_tpu/ops/pallas_kernels.py:324"),
+}
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds: device memory
 # 3.35 TB/s; FP32 67 TFLOP/s; exp on the special-function units: 16 per clock
@@ -71,14 +97,37 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def radius_params(radii, dev) -> torch.Tensor:
-    """(N, 3) bilateral params: the given radii, a distinct sigma pair each."""
-    rows = [[(r - 0.5) / 7.0, 0.05 + 0.09 * i, 0.1 + 0.08 * i]
-            for i, r in enumerate(radii)]
+def size01(radius: int) -> float:
+    """A [0, 1] parameter whose mapped radius is `radius`."""
+    return (radius - 0.5) / 7.0
+
+
+def kernel_params(name: str, radii, dev, block: int = 4) -> torch.Tensor:
+    """(N, P) params for one kernel, one row per image.  bilateral: the
+    given radii, a distinct sigma pair each; median: the radius of row 0
+    serves the batch; fastnlm: block radius `block` (from row 0), the given
+    search radii, a distinct decay each."""
+    if name == "bilateral":
+        rows = [[size01(r), 0.05 + 0.09 * i, 0.1 + 0.08 * i]
+                for i, r in enumerate(radii)]
+    elif name == "median":
+        rows = [[size01(r)] for r in radii]
+    else:
+        rows = [[size01(block), size01(r), 0.1 + 0.11 * i]
+                for i, r in enumerate(radii)]
     return torch.tensor(rows, dtype=torch.float32, device=dev)
 
 
-def bilateral_bound_ms(x: torch.Tensor, params: torch.Tensor) -> float:
+def _bound(moved_bytes: float, flops: float, exps: float):
+    """(ms, 'bytes' or 'operations'): the larger of the bytes over the memory
+    rate and the operations over their peak rates."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S
+    by_ops = max(flops / FP32_FLOP_PER_S, exps / SFU_EXP_PER_S)
+    return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                         else "operations")
+
+
+def bilateral_bound(x: torch.Tensor, params: torch.Tensor):
     """Least time for the bilateral on these inputs.  Bytes: each input read
     and the output written once.  Operations, over each image's own window of
     (2r+1)^2 taps per pixel and channel: the colour weight is symmetric,
@@ -91,9 +140,38 @@ def bilateral_bound_ms(x: torch.Tensor, params: torch.Tensor) -> float:
     taps = sum((2 * r + 1) ** 2 for r in radii) * h * w * c
     exps = sum(((2 * r + 1) ** 2 - 1) // 2 for r in radii) * h * w * c
     moved = 2 * x.numel() * 4 + params.numel() * 4
-    return 1e3 * max(moved / HBM_BYTES_PER_S,
-                     (4 * taps + 3 * exps) / FP32_FLOP_PER_S,
-                     exps / SFU_EXP_PER_S)
+    return _bound(moved, 4 * taps + 3 * exps, exps)
+
+
+def median_bound(x: torch.Tensor, params: torch.Tensor):
+    """Least time for the median on these inputs.  Bytes: each input read
+    and the output written once.  Operations: every one of the K = (2r+1)^2
+    taps must be looked at, so at least K - 1 comparisons per pixel and
+    channel (r from params[0, 0] for the batch)."""
+    r = int(kb.size01_to_radius(params[0, 0]))
+    flops = ((2 * r + 1) ** 2 - 1) * x.numel()
+    moved = 2 * x.numel() * 4 + params.numel() * 4
+    return _bound(moved, flops, 0)
+
+
+def fastnlm_bound(x: torch.Tensor, params: torch.Tensor):
+    """Least time for fast NLM on these inputs.  Bytes: each input read and
+    the output written once.  Operations, per pixel and channel over each
+    image's own search window: D_o at p equals D_-o at p + o, so the box and
+    the weight of ((2s+1)^2 - 1) / 2 distinct offsets (the centre's weight is
+    1).  Each costs the difference and its square (2), the box with running
+    sums (an add and a subtract in each direction, 1 scale: 5), the exp's
+    argument (1) and one exp, and the weight goes into two pixels' num (FMA,
+    2) and den (1): 6."""
+    n, h, w, c = x.shape
+    radii = kb.size01_to_radius(params[:, 1]).tolist()
+    distinct = sum(((2 * s + 1) ** 2 - 1) // 2 for s in radii) * h * w * c
+    moved = 2 * x.numel() * 4 + params.numel() * 4
+    return _bound(moved, 14 * distinct, distinct)
+
+
+BOUNDS = {"bilateral": bilateral_bound, "median": median_bound,
+          "fastnlm": fastnlm_bound}
 
 
 def nvidia_smi(index: int = 0) -> str:
@@ -110,12 +188,12 @@ def tf32_off() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def load_pipeline(dev) -> Pipeline:
-    """The slice's pipeline: path_bayer from the in-repo bank, init logits."""
-    bank = load_network(str(ROOT / "experiments" / "proxies" / "default.ckpt"))
-    pipe = Pipeline(ARCH, device=dev)
-    return pipe.load_state(convert.state_from_jax(
-        {"weights": {"path_bayer": bank["path_bayer"]}}))
+def load_pipeline(dev, arch: str = SLICE2, use_proxy: bool = False,
+                  bank=None) -> Pipeline:
+    """A pipeline with the in-repo bank's weights and the init logits."""
+    bank = load_network(str(BANK)) if bank is None else bank
+    pipe = Pipeline(arch, use_proxy, device=dev)
+    return pipe.load_state(convert.state_from_bank(bank, pipe))
 
 
 def make_frames(dev) -> torch.Tensor:
@@ -145,6 +223,9 @@ def phase_environment(dev) -> None:
 
 def phase_build() -> None:
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    missing = set(KERNELS) - set(sources)
+    if missing:
+        raise FileNotFoundError(f"no source for kernels {sorted(missing)}")
     report = _build.build(sources)
     for name in sources:
         if name in report:
@@ -158,49 +239,67 @@ def phase_build() -> None:
         _build.load(name)
 
 
-def phase_kernels(dev) -> float:
+def _kernel_cases():
+    """(kernel, case, shape, params rows...) of phase 3."""
+    r17 = list(range(1, 8))
+    yield "bilateral", "tiles_8x512x512x3_r1-7", (8, 512, 512, 3), r17 + [4], 4
+    yield "bilateral", "tiles_8x512x512x1_r1-7", (8, 512, 512, 1), r17 + [4], 4
+    yield "bilateral", "frame_2x520x776x3_r3,7", (2, 520, 776, 3), [3, 7], 4
+    for r in r17:
+        yield "median", f"tiles_4x512x512x3_r{r}", (4, 512, 512, 3), [r] * 4, 4
+        yield "median", f"tiles_4x256x256x1_r{r}", (4, 256, 256, 1), [r] * 4, 4
+    yield "median", "frame_2x520x776x3_r7", (2, 520, 776, 3), [7, 7], 4
+    for b in r17:
+        yield "fastnlm", f"tiles_7x512x512x3_b{b}_s1-7", (7, 512, 512, 3), r17, b
+        yield "fastnlm", f"tiles_7x256x256x1_b{b}_s1-7", (7, 256, 256, 1), r17, b
+    yield "fastnlm", "frame_2x520x776x3_b4_s3,7", (2, 520, 776, 3), [3, 7], 4
+
+
+def phase_kernels(dev) -> dict:
+    """Worst max abs error of each kernel against its plain form."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    cases = {
-        "tiles_8x512x512x3_r1-7": ((8, 512, 512, 3), [1, 2, 3, 4, 5, 6, 7, 4]),
-        "tiles_8x512x512x1_r1-7": ((8, 512, 512, 1), [1, 2, 3, 4, 5, 6, 7, 4]),
-        "frame_2x520x776x3_r3,7": ((2, 520, 776, 3), [3, 7]),
-    }
-    worst = 0.0
-    for name, (shape, radii) in cases.items():
+    worst = {name: 0.0 for name in KERNELS}
+    for name, case, shape, radii, block in _kernel_cases():
+        mod, plain, _, tol, _ = KERNELS[name]
         x = torch.rand(shape, generator=gen, device=dev)
-        p = radius_params(radii, dev)
-        got = kb.bilateral(x, p)
-        want = kb.bilateral_plain(x, p)
+        p = kernel_params(name, radii, dev, block)
+        got = getattr(mod, name)(x, p)
+        want = plain(x, p)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        line("phase 3 kernel vs plain", kernel="bilateral", case=name,
-             max_abs_err=f"{err:.3e}", tol=KERNEL_TOL)
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"bilateral {name}: {err} > {KERNEL_TOL}")
-        worst = max(worst, err)
+        line("phase 3 kernel vs plain", kernel=name, case=case,
+             max_abs_err=f"{err:.3e}", tol=tol)
+        if not err <= tol:  # also false for a NaN
+            raise AssertionError(f"{name} {case}: {err} > {tol}")
+        worst[name] = max(worst[name], err)
     return worst
 
 
-def _with_plain_bilateral(pipe):
-    """The same pipeline object with its bilateral step on the plain form."""
+def _with_plain_kernels(pipe):
+    """The pipeline's steps with every kernel op on its plain form."""
     steps = list(pipe.steps)
     for i, (name, spec) in enumerate(steps):
-        if spec.name == "bilateral":
+        if spec.name in KERNELS:
+            plain = KERNELS[spec.name][1]
             steps[i] = (name, dataclasses.replace(
-                spec, apply=lambda x, p, w: kb.bilateral_plain(x, p)))
+                spec, apply=lambda x, p, w, plain=plain: plain(x, p)))
     return steps
 
 
-def phase_serving(dev, pipe, frames) -> int:
+def phase_serving(dev, arch, pipe, frames) -> dict:
+    """Serve the frames through one path with every count set to 0 just
+    before and read just after; returns the counts."""
     serve = make_serve(pipe, dev)
     n_tiles = (len(tile_positions(FRAME[0], PATCH, STRIDE))
                * len(tile_positions(FRAME[1], PATCH, STRIDE)))
     chunks = math.ceil(n_tiles / CHUNK)
 
-    kb.launches = 0
+    for mod, *_ in KERNELS.values():
+        mod.launches = 0
     y = serve(frames)
     torch.cuda.synchronize()
-    launches = kb.launches
+    launches = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
+
     if tuple(y.shape) != (frames.shape[0], *FRAME, 3):
         raise AssertionError(f"output shape {tuple(y.shape)}")
     if not bool(torch.isfinite(y).all()):
@@ -208,58 +307,98 @@ def phase_serving(dev, pipe, frames) -> int:
     lo, hi = float(y.min()), float(y.max())
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"output outside [0, 1]: {lo}..{hi}")
-    if launches != chunks:
-        raise AssertionError(f"bilateral launches {launches} != {chunks} chunks")
-    line("phase 4 serving", arch=ARCH, frames=tuple(frames.shape),
+    expected = {name: chunks if name in PATHS[arch] else 0 for name in KERNELS}
+    if launches != expected:
+        raise AssertionError(f"{arch}: launches {launches} != {expected}")
+    line("phase 4 serving", arch=arch, frames=tuple(frames.shape),
          out=tuple(y.shape), tiles_per_frame=n_tiles, chunks=chunks,
-         bilateral_launches=launches, range=f"{lo:.4f}..{hi:.4f}")
+         launches=json.dumps(launches).replace(" ", ""),
+         range=f"{lo:.4f}..{hi:.4f}")
 
-    # the main path's own output, whose kernel batches are (16, 512, 512, 3)
-    # and a last (12, 512, 512, 3), against the plain form on the same frames
-    kernel_steps, pipe.steps = pipe.steps, _with_plain_bilateral(pipe)
+    # the path's own output, whose kernel batches are (16, 512, 512, 3) and
+    # a last (12, 512, 512, 3), against the plain forms on the same frames
+    kernel_steps, pipe.steps = pipe.steps, _with_plain_kernels(pipe)
     try:
         y_plain = serve(frames)
     finally:
         pipe.steps = kernel_steps
     torch.cuda.synchronize()
     diff = float((y - y_plain).abs().max())
-    line("phase 4 kernel vs plain end to end", frames=tuple(frames.shape),
+    line("phase 4 kernels vs plain end to end", arch=arch,
          max_abs_diff=f"{diff:.3e}", tol=E2E_TOL,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
     if not diff <= E2E_TOL:
-        raise AssertionError(f"end to end kernel vs plain: {diff} > {E2E_TOL}")
+        raise AssertionError(f"{arch} kernels vs plain: {diff} > {E2E_TOL}")
     return launches
 
 
-def phase_times(dev, pipe, frames) -> dict:
-    serve = make_serve(pipe, dev)
+def _zoo_arch(domain: str, idx: int) -> str:
+    return {"bayer": f"Bayer_{idx:02d}_Demosaic_01_sRGB_10",
+            "demosaic": f"Bayer_02_Demosaic_{idx:02d}_sRGB_10",
+            "srgb": f"Bayer_02_Demosaic_01_sRGB_{idx:02d}"}[domain]
+
+
+def phase_zoo(dev, bank) -> None:
+    """Every op, native and proxy, on the card against the CPU."""
+    x = torch.rand((2, 64, 96, 1), generator=torch.Generator().manual_seed(3))
+    worst, runs = 0.0, 0
+    for domain in ("bayer", "demosaic", "srgb"):
+        for idx, spec in enumerate(pool(domain), start=1):
+            modes = (False, True) if spec.proxy_apply is not None else (False,)
+            for use_proxy in modes:
+                arch = _zoo_arch(domain, idx)
+                with torch.inference_mode():
+                    got = load_pipeline(dev, arch, use_proxy, bank)(x.to(dev))
+                    want = load_pipeline("cpu", arch, use_proxy, bank)(x)
+                diff = float((got.cpu() - want).abs().max())
+                if not diff <= ZOO_TOL:
+                    raise AssertionError(
+                        f"{arch} use_proxy={use_proxy}: card vs CPU {diff}")
+                worst, runs = max(worst, diff), runs + 1
+    line("phase 5 zoo", pipelines=runs, input=tuple(x.shape),
+         max_abs_diff_card_vs_cpu=f"{worst:.3e}", tol=ZOO_TOL)
+
+
+def phase_times(dev, pipes, frames) -> dict:
+    """Each path's time at both storages; each kernel's time at the tile
+    batch of the serving path's chunk size, every radius 4."""
     n = frames.shape[0]
     mp = n * FRAME[0] * FRAME[1] / 1e6
-    outs = {}
-    for storage in ("f32", "bf16"):
-        with precision.cnn_storage(storage):
-            ms = event_ms(lambda: serve(frames), reps=2)
-            outs[storage] = serve(frames[:1])
-        line("phase 5 serving time", storage=storage, ms_per_frame=f"{ms / n:.3f}",
-             mp_per_s=f"{mp / (ms / 1e3):.3f}",
-             cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
-    diff = float((outs["bf16"] - outs["f32"]).abs().max())
-    line("phase 5 bf16 vs f32 storage", frame=tuple(outs["f32"].shape),
-         max_abs_diff=f"{diff:.3e}", tol=BF16_TOL)
-    if not diff <= BF16_TOL:  # also false for a NaN
-        raise AssertionError(f"bf16 vs f32 storage: {diff} > {BF16_TOL}")
+    for arch, pipe in pipes.items():
+        serve = make_serve(pipe, dev)
+        outs = {}
+        for storage in ("f32", "bf16"):
+            with precision.cnn_storage(storage):
+                ms = event_ms(lambda: serve(frames), reps=2)
+                outs[storage] = serve(frames[:1])
+            line("phase 6 serving time", arch=arch, storage=storage,
+                 ms_per_frame=f"{ms / n:.3f}",
+                 mp_per_s=f"{mp / (ms / 1e3):.3f}",
+                 cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+        diff = float((outs["bf16"] - outs["f32"]).abs().max())
+        line("phase 6 bf16 vs f32 storage", arch=arch,
+             frame=tuple(outs["f32"].shape), max_abs_diff=f"{diff:.3e}",
+             tol=BF16_TOL)
+        if not diff <= BF16_TOL:  # also false for a NaN
+            raise AssertionError(f"bf16 vs f32 storage: {diff} > {BF16_TOL}")
 
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.rand((8, PATCH, PATCH, 3), generator=gen, device=dev)
-    p = radius_params([4] * 8, dev)
-    ms = event_ms(lambda: kb.bilateral(x, p), reps=20)
-    plain_ms = event_ms(lambda: kb.bilateral_plain(x, p), reps=3)
-    bound = bilateral_bound_ms(x, p)
-    line("phase 5 kernel time", kernel="bilateral", shape=tuple(x.shape),
-         radius=4, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-         bound_ms=f"{bound:.4f}", bound_by="operations", library_ms=None)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+    times = {}
+    for name, (mod, plain, *_) in KERNELS.items():
+        p = kernel_params(name, [4] * 8, dev)
+        if name == "fastnlm":
+            p[:, 2] = 0.5   # the init logit's decay, h = 50.5
+        ms = event_ms(lambda: getattr(mod, name)(x, p), reps=20)
+        plain_ms = event_ms(lambda: plain(x, p), reps=3)
+        bound, bound_by = BOUNDS[name](x, p)
+        line("phase 6 kernel time", kernel=name, shape=tuple(x.shape),
+             radius=4, ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+             bound_ms=f"{bound:.5f}", bound_by=bound_by, library_ms=None)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by}
+    return times
 
 
 def main() -> int:
@@ -273,20 +412,22 @@ def main() -> int:
     phase_build()
     max_err = phase_kernels(dev)
 
-    pipe = load_pipeline(dev)
+    bank = load_network(str(BANK))
     frames = make_frames(dev)
-    launches = phase_serving(dev, pipe, frames)
-    times = phase_times(dev, pipe, frames)
+    pipes = {arch: load_pipeline(dev, arch, bank=bank) for arch in PATHS}
+    launches = {}
+    for arch, pipe in pipes.items():
+        counts = phase_serving(dev, arch, pipe, frames)
+        launches.update({name: counts[name] for name in PATHS[arch]})
+    phase_zoo(dev, bank)
+    times = phase_times(dev, pipes, frames)
 
     kernels = [{
-        "name": "bilateral", "route": "cuda",
-        "source": "reconfigisp_tpu_torch/csrc/bilateral.cu",
-        "replaces": "reconfigisp_tpu/ops/pallas_kernels.py:113",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"], "bound_by": "operations",
-        "library_ms": None,
-    }]
+        "name": name, "route": "cuda",
+        "source": f"reconfigisp_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces, "launches": launches[name],
+        "max_abs_err": max_err[name], **times[name], "library_ms": None,
+    } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ Weight pytrees are nested dicts and lists whose leaves are conv dicts
 `<path>.weight` (OIHW) and `<path>.bias` entries of a PyTorch state_dict,
 with list positions as indices, so Path-Restore's
 {"conv_first", "blocks": [{"conv1", "conv2"}] * 6, "conv_last"} maps onto
-PathRestore14 in order.
+PathRestore14 in order, and SRCNN's {"conv1", "conv2", "conv3"} onto
+SRCNNRes and SRCNNDemosaic.  Logits are copied as they are: squashed ops
+keep their logits, conditional ops their raw flat vector.
 """
 
 from __future__ import annotations
@@ -47,3 +49,13 @@ def state_from_jax(np_state: dict) -> dict:
     weights = {op: weights_from_jax(tree)
                for op, tree in np_state.get("weights", {}).items()}
     return {"logits": logits, "weights": weights}
+
+
+def state_from_bank(bank: dict, pipe) -> dict:
+    """The weights `pipe` needs, from a module bank keyed by op name (the
+    in-repo experiments/proxies/default.ckpt, read by
+    utils/checkpoint.load_network): native CNN weights, the proxies where
+    the pipeline runs them, and bm3d's proxy always.  Raises KeyError when
+    the bank lacks one."""
+    return {"weights": {name: weights_from_jax(bank[name])
+                        for name in pipe.weights}}

@@ -1,9 +1,15 @@
-"""Path-Restore-14L, the learned Bayer and sRGB denoisers.
+"""Learned CNN modules: SRCNN-Res proxies, SRCNN demosaic, Path-Restore-14L.
 
-Counterpart of reconfigisp_tpu/ops/cnn.py:114-176 (the SRCNN nets are not
-ported yet).  The net is an nn.Module that runs NCHW inside: a 3x3 conv to 64
-channels, six pre-activation residual blocks of two 64->64 3x3 convs, and a
-3x3 conv out.  The apply functions keep the JAX package's NHWC interface.
+Counterpart of reconfigisp_tpu/ops/cnn.py.  Each net is an nn.Module that
+runs NCHW inside; the apply functions keep the JAX package's NHWC interface.
+  * SRCNN-Res (the proxies): conv 9x9/64, 5x5/32, 5x5/3 with a residual,
+    conditioned on the image's per-channel min/mean/max and the op's params
+    broadcast to planes.  Its input always has 3 + 9 + MAX_PROXY_PARAMS
+    channels; the columns past the op's own parameter count are zero at init
+    and the params are zero-padded at apply.
+  * SRCNN demosaic: RGGB pack, conv 9x9/64, 1x1/32, 5x5/12, pixel shuffle.
+  * Path-Restore-14L: a 3x3 conv to 64 channels, six pre-activation residual
+    blocks of two 64->64 3x3 convs, and a 3x3 conv out.
 """
 
 from __future__ import annotations
@@ -14,17 +20,24 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from reconfigisp_tpu_torch.ops.nn import (
-    bayer_to_rggb, init_conv, pixel_shuffle)
+    bayer_to_rggb, broadcast_params, init_conv, pixel_shuffle)
 from reconfigisp_tpu_torch.precision import cnn_storage_dtype
 
 _WIDTH = 64
 _BLOCKS = 6
+MAX_PROXY_PARAMS = 5  # widest proxy: bm3d's 5 params
 
 
-def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
+def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
     # skip_init: the weights are drawn from the pipeline's generator (or
-    # loaded), never from the global RNG
-    return skip_init(nn.Conv2d, cin, cout, 3, padding=1)
+    # loaded), never from the global RNG; "same" padding for odd k
+    return skip_init(nn.Conv2d, cin, cout, k, padding=k // 2)
+
+
+def _init_all(net: nn.Module, generator: torch.Generator) -> None:
+    for m in net.modules():
+        if isinstance(m, nn.Conv2d):
+            init_conv(m, generator)
 
 
 def _conv_s(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -33,7 +46,72 @@ def _conv_s(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     if dt == torch.float32:
         return conv(x)
     return F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
-                    padding=1)
+                    padding=conv.padding)
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+# ------------------------------------------------------------------ SRCNN
+
+class SRCNNRes(nn.Module):
+    """The proxy net: conv 9x9/64, 5x5/32, 5x5/3 on NCHW features
+    (reference srcnn_res_arch.py:13-24); output in the input's dtype."""
+
+    def __init__(self, n_params: int, generator: torch.Generator):
+        super().__init__()
+        cin = 3 + 9 + MAX_PROXY_PARAMS
+        self.conv1 = _conv(cin, 64, 9)
+        self.conv2 = _conv(64, 32, 5)
+        self.conv3 = _conv(32, 3, 5)
+        _init_all(self, generator)
+        with torch.no_grad():  # unused conditioning channels stay zero
+            self.conv1.weight[:, 3 + 9 + n_params:] = 0.0
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        y = F.relu(_conv_s(feat, self.conv1))
+        y = F.relu(_conv_s(y, self.conv2))
+        return _conv_s(y, self.conv3).to(feat.dtype)
+
+
+class SRCNNDemosaic(nn.Module):
+    """4 RGGB planes -> 12 planes: conv 9x9/64, 1x1/32, 5x5/12
+    (reference srcnn_demosaic_arch.py:14-25).  The demosaic ops have no
+    parameters, so no parameter planes are concatenated."""
+
+    def __init__(self, generator: torch.Generator):
+        super().__init__()
+        self.conv1 = _conv(4, 64, 9)
+        self.conv2 = _conv(64, 32, 1)
+        self.conv3 = _conv(32, 12, 5)
+        _init_all(self, generator)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        y = F.relu(_conv_s(feat, self.conv1))
+        y = F.relu(_conv_s(y, self.conv2))
+        return _conv_s(y, self.conv3).to(feat.dtype)
+
+
+def apply_srcnn_res(net: SRCNNRes, x: torch.Tensor, params) -> torch.Tensor:
+    """x (N,H,W,3) BGR; params (N,P), P <= MAX_PROXY_PARAMS, or None."""
+    n, h, w, _ = x.shape
+    if params is None:
+        params = x.new_zeros((n, 0))
+    params = F.pad(params, (0, MAX_PROXY_PARAMS - params.shape[1]))
+    cond = torch.cat([torch.amin(x, dim=(1, 2)), torch.mean(x, dim=(1, 2)),
+                      torch.amax(x, dim=(1, 2)), params], dim=1)
+    feat = torch.cat([x, broadcast_params(cond, h, w)], dim=-1)
+    return x + net(_nchw(feat)).permute(0, 2, 3, 1)
+
+
+def apply_srcnn_demosaic(net: SRCNNDemosaic, x: torch.Tensor) -> torch.Tensor:
+    """x (N,H,W,1) Bayer RGGB -> (N,H,W,3): RGGB pack, net, pixel shuffle."""
+    y = net(_nchw(bayer_to_rggb(x)))
+    return pixel_shuffle(y.permute(0, 2, 3, 1), 2)
+
+
+# ------------------------------------------------------------ Path-Restore
 
 
 class ResBlock(nn.Module):
@@ -41,8 +119,8 @@ class ResBlock(nn.Module):
 
     def __init__(self):
         super().__init__()
-        self.conv1 = _conv3x3(_WIDTH, _WIDTH)
-        self.conv2 = _conv3x3(_WIDTH, _WIDTH)
+        self.conv1 = _conv(_WIDTH, _WIDTH, 3)
+        self.conv2 = _conv(_WIDTH, _WIDTH, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _conv_s(F.relu(x), self.conv1)
@@ -55,12 +133,10 @@ class PathRestore14(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, generator: torch.Generator):
         super().__init__()
-        self.conv_first = _conv3x3(in_ch, _WIDTH)
+        self.conv_first = _conv(in_ch, _WIDTH, 3)
         self.blocks = nn.ModuleList(ResBlock() for _ in range(_BLOCKS))
-        self.conv_last = _conv3x3(_WIDTH, out_ch)
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                init_conv(m, generator)
+        self.conv_last = _conv(_WIDTH, out_ch, 3)
+        _init_all(self, generator)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         in_dtype = feat.dtype
@@ -78,10 +154,6 @@ def path14_bayer(generator: torch.Generator) -> PathRestore14:
 def path14_bgr(generator: torch.Generator) -> PathRestore14:
     """sRGB-domain net: 3 channels in and out (path_14l_bgr_arch.py)."""
     return PathRestore14(3, 3, generator)
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).contiguous()
 
 
 def apply_path14_bayer(net: PathRestore14, x: torch.Tensor) -> torch.Tensor:

@@ -16,14 +16,12 @@ x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
 from reconfigisp_tpu_torch.ops.kernels import _build
 
-MAX_R = 7
+MAX_R = _build.MAX_R
 
 launches = 0  # kernel launches since the caller last set it to 0
 
@@ -68,55 +66,12 @@ def bilateral_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     return torch.clamp(out / 255.0, 0.0, 1.0)
 
 
-def _check(x: torch.Tensor, params: torch.Tensor) -> None:
-    if x.dtype != torch.float32 or params.dtype != torch.float32:
-        raise TypeError(f"bilateral kernel takes float32, got {x.dtype} "
-                        f"and {params.dtype}")
-    if x.ndim != 4 or x.shape[3] not in (1, 3):
-        raise ValueError(f"bilateral kernel takes (N, H, W, 1|3), got "
-                         f"{tuple(x.shape)}")
-    n, h, w, _ = x.shape
-    if h <= MAX_R or w <= MAX_R or not 1 <= n <= 65535:
-        raise ValueError(f"bilateral kernel needs H, W > {MAX_R} and "
-                         f"1 <= N <= 65535, got {tuple(x.shape)}")
-    if tuple(params.shape) != (n, 3):
-        raise ValueError(f"params must be ({n}, 3), got {tuple(params.shape)}")
-    if params.device != x.device:
-        raise ValueError("x and params must be on the same device")
-
-
-def _forward():
-    """The C entry point bilateral_forward(x, params, out, n, h, w, c, stream)."""
-    fn = _build.load("bilateral").bilateral_forward
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def bilateral(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel for a CUDA tensor, the plain form for a CPU tensor.
     The kernel reads contiguous NHWC, so other strides are copied first."""
     global launches
-    if x.device.type == "cpu":
+    if not _build.on_card("bilateral", x, params):
         return bilateral_plain(x, params)
-    if x.device.type != "cuda":
-        raise ValueError(f"bilateral runs on cuda or cpu, not {x.device}")
-    if x.requires_grad or params.requires_grad:
-        # the autograd Function with the plain form's backward comes with
-        # the training slice
-        raise RuntimeError(
-            "bilateral on CUDA is forward-only: call it under "
-            "torch.no_grad() or torch.inference_mode()")
-    x, params = x.contiguous(), params.contiguous()
-    _check(x, params)
-    n, h, w, c = x.shape
-    out = torch.empty_like(x)
-    forward = _forward()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = forward(x.data_ptr(), params.data_ptr(), out.data_ptr(),
-                     n, h, w, c, stream)
-    if rc != 0:
-        raise RuntimeError(f"bilateral kernel launch failed: CUDA error {rc}")
+    out = _build.launch("bilateral", x, params, 3)
     launches += 1
     return out

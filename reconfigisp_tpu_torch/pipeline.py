@@ -2,10 +2,12 @@
 
 Counterpart of reconfigisp_tpu/pipeline.py.  The JAX Pipeline is stateless
 and takes a state pytree; here the pipeline is an nn.Module that holds its
-state: `logits` (one (P,) parameter per step that has parameters) and
-`weights` (one learned module per op name, shared by the steps that use it).
-`load_state` takes the state that convert.state_from_jax makes from a JAX
-state.
+state: `logits` (one (P,) parameter per step that has parameters; a
+conditional op's is its raw flat FC vector) and `weights` (one learned
+module per op name, shared by the steps that use it: the proxy where the
+step runs its proxy).  `load_state` takes the state that
+convert.state_from_jax makes from a JAX state, or convert.state_from_bank
+from the in-repo module bank.
 """
 
 from __future__ import annotations
@@ -48,38 +50,49 @@ def parse_architecture(arch: str):
 
 
 class Pipeline(nn.Module):
-    """A fixed ISP pipeline of native ops.
+    """A fixed ISP pipeline.
 
-    Pipeline(arch, device=None, generator=None): logits start at each op's
-    init logits; learned modules are drawn from `generator` (a CPU
+    Pipeline(arch, use_proxy=False, device=None, generator=None):
+    use_proxy=False runs the native ops (bm3d, which has no native form,
+    stays a proxy); use_proxy=True runs the CNN proxies where they exist.
+    Logits start at each op's init logits; a conditional op's flat vector
+    and the learned modules are drawn from `generator` (a CPU
     torch.Generator, seeded 0 when not given).
     """
 
-    def __init__(self, architecture: str, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, architecture: str, use_proxy: bool = False, *,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
         self.architecture = architecture
-        self.steps = []
-        for i, (domain, idx) in enumerate(parse_architecture(architecture)):
-            spec = get_op(domain, idx)
-            if spec.apply is None:
-                raise NotImplementedError(
-                    f"{domain} op {idx:02d} ({spec.name}) is not ported to "
-                    f"PyTorch yet; ROADMAP.md lists what is still to port")
-            self.steps.append((f"step{i + 1}_{spec.name}", spec))
+        self.use_proxy = use_proxy
+        specs = [get_op(domain, idx)
+                 for domain, idx in parse_architecture(architecture)]
+        self.steps = [(f"step{i + 1}_{spec.name}", spec)
+                      for i, spec in enumerate(specs)]
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.logits = nn.ParameterDict()
         self.weights = nn.ModuleDict()
         for step_name, spec in self.steps:
-            if spec.n_params:
+            if spec.conditional:
+                self.logits[step_name] = nn.Parameter(
+                    spec.init_params(generator))
+            elif spec.n_params:
                 self.logits[step_name] = nn.Parameter(
                     torch.tensor(spec.init_logits, dtype=torch.float32))
-            if spec.init_weights is not None and spec.name not in self.weights:
-                self.weights[spec.name] = spec.init_weights(generator)
+            init = self._weights_init(spec)
+            if init is not None and spec.name not in self.weights:
+                self.weights[spec.name] = init(generator)
         self.device = dev
         self.to(dev)
+
+    def _weights_init(self, spec: OpSpec):
+        """The constructor of the module the step runs with, or None: the
+        proxy's where the step runs its proxy, else the native one."""
+        if (self.use_proxy or spec.proxy_only) and spec.proxy_init is not None:
+            return spec.proxy_init
+        return spec.init_weights
 
     @torch.no_grad()
     def load_state(self, state: dict) -> "Pipeline":
@@ -104,7 +117,7 @@ class Pipeline(nn.Module):
             params = self._materialize_params(step_name, spec, n, x.dtype)
             weights = self.weights[spec.name] if spec.name in self.weights \
                 else None
-            x = spec.apply(x, params, weights)
+            x = spec.get_apply(self.use_proxy)(x, params, weights)
             mids[step_name] = x
         if not return_intermediates:
             return x
@@ -114,6 +127,8 @@ class Pipeline(nn.Module):
 
     def _materialize_params(self, step_name: str, spec: OpSpec, n: int,
                             dtype: torch.dtype):
+        if spec.conditional:
+            return self.logits[step_name]
         if spec.n_params == 0:
             return None
         p01 = torch.sigmoid(self.logits[step_name]).to(dtype)

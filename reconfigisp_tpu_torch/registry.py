@@ -1,11 +1,14 @@
 """Op registry: the three candidate pools at the reference's 1-based indices.
 
-Counterpart of reconfigisp_tpu/registry.py:122-240.  Every op of the Bayer
-(2), demosaic (4) and sRGB (18) pools is listed with its parameter count and
-init logits, so architecture strings index the same algorithms.  Only ported
-ops carry an `apply`; building a pipeline with any other op raises
-NotImplementedError (the queue of what is still to port is in ROADMAP.md).
-The CNN proxies are not ported.
+Counterpart of reconfigisp_tpu/registry.py.  Every op of the Bayer (2),
+demosaic (4) and sRGB (18) pools is listed with its parameter count and init
+logits, so architecture strings index the same algorithms.  As in the JAX
+package, an op has up to two forms:
+  * native (`apply`), the default;
+  * proxy (`proxy_apply`), a parameter-conditioned CNN: SRCNN-Res for the
+    sRGB ops the JAX registry marks ft (2, 3, 4, 6, 7, 8, 9) and for bm3d
+    (15), which is proxy-only; SRCNN demosaic for demosaic ops 2 and 3.
+Learned weights are nn.Modules drawn from a torch.Generator.
 """
 
 from __future__ import annotations
@@ -13,7 +16,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from reconfigisp_tpu_torch.ops import cnn, color, demosaic, denoise
+import torch
+
+from reconfigisp_tpu_torch.ops import (
+    cnn, color, conditional, demosaic, denoise, tone)
 
 # Per-op latency in ms per megapixel on the H100, for the latency-aware loss.
 # Every entry is None: not yet measured on the H100 (the JAX package's table
@@ -32,18 +38,55 @@ class OpSpec:
     domain: str                      # 'bayer' | 'demosaic' | 'srgb'
     n_params: int
     init_logits: tuple               # default logits; sigmoid -> [0,1] params
-    apply: Optional[Callable]        # apply(x, params, weights); None: not ported
+    apply: Optional[Callable]        # native apply(x, params, weights)
     init_weights: Optional[Callable] = None  # torch.Generator -> nn.Module
+    proxy_apply: Optional[Callable] = None   # proxy apply(x, params, weights)
+    proxy_init: Optional[Callable] = None    # torch.Generator -> nn.Module
     conditional: bool = False        # raw flat params, no sigmoid/repeat
+    init_params: Optional[Callable] = None   # generator -> logits (conditional)
 
     @property
     def latency(self) -> Optional[float]:
         return LATENCY_MS_PER_MP[self.name]
 
+    @property
+    def proxy_only(self) -> bool:
+        return self.apply is None
+
+    def get_apply(self, use_proxy: bool) -> Callable:
+        """The proxy where asked for (or where no native form exists) and
+        one exists; the native form otherwise."""
+        if (use_proxy or self.apply is None) and self.proxy_apply is not None:
+            return self.proxy_apply
+        return self.apply
+
 
 _WBQ_INIT = (0, 0, 0, 0, 0, 0, 0.406, 0, 0, 0,
              0, 0, 0, 0, 0, 0, 0, 0.406, 0, 0,
              0, 0, 0, 0, 0, 0, 0, 0, 0.406, 0)  # identity diag, sigmoid->0.6->coef 1
+
+
+def _srcnn_proxy(n_params: int) -> dict:
+    return {"proxy_apply": lambda x, p, w: cnn.apply_srcnn_res(w, x, p),
+            "proxy_init": lambda g: cnn.SRCNNRes(n_params, g)}
+
+
+_DEMOSAIC_PROXY = {
+    "proxy_apply": lambda x, p, w: cnn.apply_srcnn_demosaic(w, x),
+    "proxy_init": cnn.SRCNNDemosaic}
+
+
+def _conditional_init(n_global: int, base_logits: tuple):
+    """The FC weights ~ N(0, 0.01^2), then the base op's init logits as the
+    global part (reference isp_universal.py:185-190)."""
+    total = conditional.conditional_n_params(
+        conditional.DEFAULT_IN_CHANNELS, n_global)
+
+    def init(generator: torch.Generator) -> torch.Tensor:
+        w = 0.01 * torch.randn(total - n_global, generator=generator)
+        return torch.cat([w, torch.tensor(base_logits, dtype=torch.float32)])
+
+    return init
 
 
 def _build_registry():
@@ -59,33 +102,53 @@ def _build_registry():
     add("bayer", 2, "skip", apply=color.skip)
 
     add("demosaic", 1, "nearest", apply=demosaic.demosaic_nearest)
-    add("demosaic", 2, "bilinear", apply=demosaic.demosaic_bilinear)
-    add("demosaic", 3, "laplacian", apply=demosaic.demosaic_malvar)
-    add("demosaic", 4, "demosaicnet")
+    add("demosaic", 2, "bilinear", apply=demosaic.demosaic_bilinear,
+        **_DEMOSAIC_PROXY)
+    add("demosaic", 3, "laplacian", apply=demosaic.demosaic_malvar,
+        **_DEMOSAIC_PROXY)
+    add("demosaic", 4, "demosaicnet",
+        apply=lambda x, p, w: cnn.apply_srcnn_demosaic(w, x),
+        init_weights=cnn.SRCNNDemosaic)
 
     add("srgb", 1, "gamma", 1, (0.,), color.gamma)
-    add("srgb", 2, "reinhard", 2, (0., 0.))
-    add("srgb", 3, "crysisengine", 1, (0.,))
-    add("srgb", 4, "filmic", 2, (0., 0.))
+    add("srgb", 2, "reinhard", 2, (0., 0.), tone.tone_reinhard,
+        **_srcnn_proxy(2))
+    add("srgb", 3, "crysisengine", 1, (0.,), tone.tone_crysis,
+        **_srcnn_proxy(1))
+    add("srgb", 4, "filmic", 2, (0., 0.), tone.tone_filmic,
+        **_srcnn_proxy(2))
     add("srgb", 5, "grayworld", apply=color.grayworld)
-    add("srgb", 6, "whiteworld", 1, (0.,), color.wb_whiteworld)
+    add("srgb", 6, "whiteworld", 1, (0.,), color.wb_whiteworld,
+        **_srcnn_proxy(1))
     add("srgb", 7, "bilateral", 3, (0., 0., 0.),
-        lambda x, p, w: denoise.bilateral(x, p))
-    add("srgb", 8, "median", 1, (0.,))
-    add("srgb", 9, "fastnlm", 3, (0., 0., 0.))
+        lambda x, p, w: denoise.bilateral(x, p), **_srcnn_proxy(3))
+    add("srgb", 8, "median", 1, (0.,),
+        lambda x, p, w: denoise.median(x, p), **_srcnn_proxy(1))
+    add("srgb", 9, "fastnlm", 3, (0., 0., 0.),
+        lambda x, p, w: denoise.fastnlm(x, p), **_srcnn_proxy(3))
     add("srgb", 10, "skip", apply=color.skip)
     add("srgb", 11, "wbmanual", 3, (-1.38, -1.38, -1.38), color.wb_manual)
     add("srgb", 12, "path_bgr",
         apply=lambda x, p, w: cnn.apply_path14_bgr(w, x),
         init_weights=cnn.path14_bgr)
     add("srgb", 13, "wbquadratic", 30, _WBQ_INIT, color.wb_quadratic)
-    add("srgb", 14, "gtmmanual", 3, (-1.099, 0., 1.099))
-    add("srgb", 15, "bm3d", 5, (-1.946, 1.099, -1.099, -1.099, 2.708))
+    add("srgb", 14, "gtmmanual", 3, (-1.099, 0., 1.099), tone.gtm_manual)
+    # BM3D: proxy-only, as in the JAX package (dct_denoise, the proxy's
+    # training target, is not ported yet)
+    add("srgb", 15, "bm3d", 5, (-1.946, 1.099, -1.099, -1.099, 2.708),
+        **_srcnn_proxy(5))
     # conditional ops: a flat FC-net parameter vector (418/454/940 values)
-    for idx, name, total in ((16, "conditional_gamma", 418),
-                             (17, "conditional_wb_manual", 454),
-                             (18, "conditional_wb_quadratic", 940)):
-        add("srgb", idx, name, total, conditional=True)
+    for idx, name, n_glob, base, apply in (
+            (16, "conditional_gamma", 1, (0.,),
+             conditional.conditional_gamma),
+            (17, "conditional_wb_manual", 3, (-1.38, -1.38, -1.38),
+             conditional.conditional_wb_manual),
+            (18, "conditional_wb_quadratic", 30, _WBQ_INIT,
+             conditional.conditional_wb_quadratic)):
+        total = conditional.conditional_n_params(
+            conditional.DEFAULT_IN_CHANNELS, n_glob)
+        add("srgb", idx, name, total, apply=apply, conditional=True,
+            init_params=_conditional_init(n_glob, base))
     return reg
 
 

@@ -1,4 +1,5 @@
-"""The bilateral CUDA kernel against its plain PyTorch form, on the card.
+"""The bilateral, median and fast-NLM CUDA kernels against their plain
+PyTorch forms, on the card.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs alone:
@@ -12,6 +13,8 @@ import torch
 
 from reconfigisp_tpu_torch.ops import denoise
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
+from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
+from reconfigisp_tpu_torch.ops.kernels import median as km
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +75,79 @@ def test_op_refuses_grad_on_cuda(cuda):
     x, p = _case((1, 16, 16, 3), [[0.5, 0.5, 0.5]], cuda)
     with pytest.raises(RuntimeError, match="forward-only"):
         denoise.bilateral(x.requires_grad_(), p)
+
+
+# ------------------------------------------------------------------ median
+
+@pytest.mark.parametrize("shape", [(3, 64, 96, 3), (3, 40, 72, 1),
+                                   (1, 520, 776, 3)])
+@pytest.mark.parametrize("radius", range(1, 8))
+def test_median_kernel_equals_plain(cuda, shape, radius):
+    """Both select the exact middle tap: bit-identical."""
+    x, p = _case(shape, [[(radius - 0.5) / 7.0]] * shape[0], cuda)
+    before = km.launches
+    got = km.median(x, p)
+    torch.cuda.synchronize()
+    assert km.launches == before + 1
+    assert torch.equal(got, km.median_plain(x, p))
+
+
+# ------------------------------------------------------------------ fast NLM
+
+def _nlm_rows(block, n):
+    """Row 0 sets the block radius; search radii 1..7 and decays vary."""
+    return [[(block - 0.5) / 7.0 if i == 0 else 0.0,
+             (i % 7 + 0.5) / 7.0, 0.05 + 0.13 * i] for i in range(n)]
+
+
+@pytest.mark.parametrize("shape", [(7, 48, 64, 3), (7, 40, 24, 1),
+                                   (1, 520, 776, 3)])
+@pytest.mark.parametrize("block", range(1, 8))
+def test_fastnlm_kernel_matches_plain(cuda, shape, block):
+    """Same sums in the same order; expf on both sides: 5e-5."""
+    x, p = _case(shape, _nlm_rows(block, shape[0]), cuda)
+    before = kf.launches
+    got = kf.fastnlm(x, p)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    want = kf.fastnlm_plain(x, p)
+    assert float((got - want).abs().max()) <= 5e-5
+
+
+# ------------------------------------------------------------------ wrappers
+
+_OPS = {"bilateral": (kb.bilateral, 3), "median": (km.median, 1),
+        "fastnlm": (kf.fastnlm, 3)}
+
+
+@pytest.mark.parametrize("name", ["median", "fastnlm"])
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda, name):
+    op, n_params = _OPS[name]
+    x, p = _case((1, 16, 16, 3), [[0.5] * n_params], cuda)
+    with pytest.raises(TypeError):
+        op(x.double(), p)
+    with pytest.raises(ValueError):
+        op(x[:, :6], p)
+    with pytest.raises(ValueError):
+        op(torch.cat([x, x[..., :1]], -1), p)
+    with pytest.raises(ValueError):
+        op(x, torch.cat([p, p], -1))
+
+
+@pytest.mark.parametrize("name", ["median", "fastnlm"])
+def test_wrappers_copy_strided_input(cuda, name):
+    op, n_params = _OPS[name]
+    x, p = _case((2, 16, 24, 3), [[0.5] * n_params], cuda)
+    xt, pe = x.transpose(1, 2), p.expand(2, n_params)
+    got = op(xt, pe)
+    want = op(xt.contiguous(), pe.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["median", "fastnlm"])
+def test_ops_refuse_grad_on_cuda(cuda, name):
+    _, n_params = _OPS[name]
+    x, p = _case((1, 16, 16, 3), [[0.5] * n_params], cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        getattr(denoise, name)(x.requires_grad_(), p)

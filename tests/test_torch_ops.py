@@ -1,5 +1,6 @@
-"""The port's primitives, demosaics, colour ops and Path-Restore against the
-JAX package, on the same numpy inputs and weights."""
+"""The port's primitives, demosaics, colour and tone ops, conditional ops,
+SRCNN nets and Path-Restore against the JAX package, on the same numpy
+inputs and weights."""
 
 from pathlib import Path
 
@@ -12,13 +13,15 @@ import torch
 from reconfigisp_tpu import registry as jreg
 from reconfigisp_tpu.ops import cnn as jcnn
 from reconfigisp_tpu.ops import color as jcolor
+from reconfigisp_tpu.ops import conditional as jconditional
 from reconfigisp_tpu.ops import demosaic as jdemosaic
 from reconfigisp_tpu.ops import nn as jnn
+from reconfigisp_tpu.ops import tone as jtone
 from reconfigisp_tpu.utils.checkpoint import load_network as jload_network
 
 from reconfigisp_tpu_torch import precision, registry
 from reconfigisp_tpu_torch.convert import weights_from_jax
-from reconfigisp_tpu_torch.ops import cnn, color, demosaic, nn
+from reconfigisp_tpu_torch.ops import cnn, color, conditional, demosaic, nn, tone
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
 
 CKPT = str(Path(__file__).resolve().parents[1] / "experiments" / "proxies"
@@ -106,6 +109,117 @@ def test_color_matches_jax(name):
     np.testing.assert_allclose(_np(out), _np(ref), atol=1e-6)
 
 
+# ------------------------------------------------------------- tone
+
+_TONE = {"gtm_manual": 3, "tone_reinhard": 2, "tone_crysis": 1,
+         "tone_filmic": 2}
+
+
+@pytest.mark.parametrize("name", sorted(_TONE))
+def test_tone_matches_jax(name):
+    r = np.random.default_rng(8)
+    x = r.uniform(0.0, 1.0, (2, 12, 10, 3)).astype(np.float32)
+    p = r.uniform(0, 1, (2, _TONE[name])).astype(np.float32)
+    ref = getattr(jtone, name)(jnp.asarray(x), jnp.asarray(p))
+    out = getattr(tone, name)(torch.from_numpy(x), torch.from_numpy(p))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
+
+
+# ------------------------------------------------------------- conditional
+
+def test_channel_histograms_exact():
+    x = np.random.default_rng(9).uniform(0, 1, (2, 12, 10, 3)).astype(
+        np.float32)
+    x[0, 0, 0] = [0.0, 1.0, 0.999]   # the clipped edge bins
+    np.testing.assert_array_equal(
+        _np(conditional.channel_histograms(torch.from_numpy(x), 8)),
+        _np(jconditional._channel_histograms(jnp.asarray(x), 8)))
+
+
+@pytest.mark.parametrize("name,n_glob", [("conditional_gamma", 1),
+                                         ("conditional_wb_manual", 3),
+                                         ("conditional_wb_quadratic", 30)])
+def test_conditional_matches_jax(name, n_glob):
+    """The FC net on the counts, then the base op; the matmuls sum 24 and 16
+    terms in another order: 1e-5."""
+    r = np.random.default_rng(10)
+    x = r.uniform(0.05, 0.95, (2, 12, 10, 3)).astype(np.float32)
+    total = jconditional.conditional_n_params((24, 16), n_glob)
+    assert conditional.conditional_n_params((24, 16), n_glob) == total
+    flat = (0.01 * r.standard_normal(total)).astype(np.float32)
+    ref = getattr(jconditional, name)(jnp.asarray(x), jnp.asarray(flat))
+    out = getattr(conditional, name)(torch.from_numpy(x),
+                                     torch.from_numpy(flat))
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
+
+
+# ------------------------------------------------------------- SRCNN
+
+def _srcnn_res_pair(n_params):
+    jw = jcnn.init_srcnn_res(jax.random.PRNGKey(n_params), n_params)
+    net = cnn.SRCNNRes(n_params, torch.Generator().manual_seed(0))
+    net.load_state_dict(weights_from_jax(jax.tree.map(np.asarray, jw)))
+    return jw, net
+
+
+@pytest.mark.parametrize("n_params", [0, 1, 3, 5])
+def test_srcnn_res_matches_jax(n_params):
+    """Params zero-padded to MAX_PROXY_PARAMS; 9x9 and 5x5 'same' convs."""
+    jw, net = _srcnn_res_pair(n_params)
+    r = np.random.default_rng(11)
+    x = r.uniform(0, 1, (2, 20, 16, 3)).astype(np.float32)
+    p = r.uniform(0, 1, (2, n_params)).astype(np.float32) if n_params else None
+    ref = jcnn.apply_srcnn_res(jw, jnp.asarray(x),
+                               None if p is None else jnp.asarray(p))
+    with torch.no_grad():
+        out = cnn.apply_srcnn_res(net, torch.from_numpy(x),
+                                  None if p is None else torch.from_numpy(p))
+    assert out.shape == (2, 20, 16, 3)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-4)
+
+
+def test_srcnn_res_zeroes_unused_conditioning():
+    net = cnn.SRCNNRes(2, torch.Generator().manual_seed(0))
+    w = net.conv1.weight.detach()
+    assert cnn.MAX_PROXY_PARAMS == jcnn.MAX_PROXY_PARAMS == 5
+    assert w.shape == (64, 17, 9, 9)
+    assert bool((w[:, 14:] == 0).all()) and bool((w[:, :14] != 0).any())
+
+
+def test_srcnn_demosaic_matches_jax():
+    jw = jcnn.init_srcnn_demosaic(jax.random.PRNGKey(3), 0)
+    net = cnn.SRCNNDemosaic(torch.Generator().manual_seed(0))
+    net.load_state_dict(weights_from_jax(jax.tree.map(np.asarray, jw)))
+    x = np.random.default_rng(12).uniform(0, 1, (2, 16, 20, 1)).astype(
+        np.float32)
+    ref = jcnn.apply_srcnn_demosaic(jw, jnp.asarray(x))
+    with torch.no_grad():
+        out = cnn.apply_srcnn_demosaic(net, torch.from_numpy(x))
+    assert out.shape == (2, 16, 20, 3)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("net_name", ["srcnn_res", "srcnn_demosaic"])
+def test_bf16_storage_keeps_each_conv_padding(net_name):
+    """The bf16 path pads each conv by its own kernel (9x9, 5x5, 1x1)."""
+    gen = torch.Generator().manual_seed(0)
+    r = np.random.default_rng(13)
+    if net_name == "srcnn_res":
+        net, c = cnn.SRCNNRes(1, gen), 3
+        run = lambda x: cnn.apply_srcnn_res(net, x, torch.full((1, 1), 0.5))
+    else:
+        net, c = cnn.SRCNNDemosaic(gen), 1
+        run = lambda x: cnn.apply_srcnn_demosaic(net, x)
+    x = torch.from_numpy(r.uniform(0, 1, (1, 16, 16, c)).astype(np.float32))
+    with torch.no_grad():
+        ref = run(x)
+        with precision.cnn_storage("bf16"):
+            out = run(x)
+    assert out.shape == ref.shape == (1, 16, 16, 3)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(_np(out), _np(ref), atol=5e-2)
+
+
 # ------------------------------------------------------------- Path-Restore
 
 _PATH = {
@@ -168,6 +282,8 @@ def test_pools_match_jax(domain):
         np.testing.assert_allclose(ts.init_logits, js.init_logits)
         assert registry.get_op(domain, jreg.op_index(domain, js.name)) is ts
         assert ts.conditional == js.conditional
+        assert ts.proxy_only == js.proxy_only
+        assert (ts.proxy_apply is None) == (js.proxy_apply is None)
         assert ts.latency is None  # not yet measured on the H100
 
 

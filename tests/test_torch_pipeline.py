@@ -1,6 +1,7 @@
 """The port's pipelines, tiling and serving against the JAX package, with the
-JAX pipeline's init weights carried across by convert.state_from_jax; and
-the port's rules (no JAX import, no silent CPU fallback, unported ops)."""
+JAX pipeline's init weights carried across by convert.state_from_jax; every
+op of the zoo, native and proxy; and the port's rules (no JAX import, no
+silent CPU fallback)."""
 
 import subprocess
 import sys
@@ -21,15 +22,16 @@ from reconfigisp_tpu_torch.parallel import tiling
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
 
 SLICE = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"
+SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"   # median, then fast NLM
 FLAGSHIP = "Bayer_01_Demosaic_03_sRGB_01_13_11"
 CKPT = str(Path(__file__).resolve().parents[1] / "experiments" / "proxies"
            / "default.ckpt")
 
 
-def _pair(arch, jax_state=None):
-    pj = rj.Pipeline(arch)
-    st = jax_state or pj.init(jax.random.PRNGKey(0))
-    pt = rt.Pipeline(arch, device="cpu").load_state(
+def _pair(arch, jax_state=None, use_proxy=False, seed=0):
+    pj = rj.Pipeline(arch, use_proxy=use_proxy)
+    st = jax_state or pj.init(jax.random.PRNGKey(seed))
+    pt = rt.Pipeline(arch, use_proxy, device="cpu").load_state(
         convert.state_from_jax(_to_numpy(st)))
     return pj, st, pt
 
@@ -38,7 +40,7 @@ def _mosaic(shape, seed=21):
     return np.random.default_rng(seed).uniform(0, 1, shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("arch", [SLICE, FLAGSHIP])
+@pytest.mark.parametrize("arch", [SLICE, FLAGSHIP, SLICE2])
 def test_pipeline_matches_jax_with_intermediates(arch):
     pj, st, pt = _pair(arch)
     x = _mosaic((2, 64, 64, 1))
@@ -84,9 +86,13 @@ def _serve_fn(pt, x):
                                   device="cpu")(x)
 
 
-@pytest.mark.parametrize("entry", ["tiled_apply", "make_serving_fn"])
-def test_tiled_serving_matches_jax(entry):
-    pj, st, pt = _pair(SLICE)
+@pytest.mark.parametrize("entry,arch", [
+    ("tiled_apply", SLICE), ("make_serving_fn", SLICE),
+    ("tiled_apply", SLICE2), ("make_serving_fn", SLICE2)], ids=[
+    "tiled_apply", "make_serving_fn", "tiled_apply-slice2",
+    "make_serving_fn-slice2"])
+def test_tiled_serving_matches_jax(entry, arch):
+    pj, st, pt = _pair(arch)
     x = _mosaic((1, 96, 128, 1), seed=22)
     want = jtiling.tiled_apply(lambda t: pj(st, t), jax.numpy.asarray(x),
                                patch=32, stride=24, chunk=4)
@@ -128,7 +134,11 @@ def test_default_bank_loads_through_convert():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, reconfigisp_tpu_torch, reconfigisp_tpu_torch.deploy, "
-            "reconfigisp_tpu_torch.convert; "
+            "reconfigisp_tpu_torch.convert, reconfigisp_tpu_torch.ops.tone, "
+            "reconfigisp_tpu_torch.ops.conditional, "
+            "reconfigisp_tpu_torch.ops.cnn, reconfigisp_tpu_torch.ops.denoise, "
+            "reconfigisp_tpu_torch.ops.kernels.median, "
+            "reconfigisp_tpu_torch.ops.kernels.fastnlm, chip_smoke; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'reconfigisp_tpu' "
             "or m.startswith('reconfigisp_tpu.')]; print(bad); "
@@ -148,15 +158,89 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         deploy.make_serving_fn(pt, patch=32, stride=24)
 
 
+def _zoo_arch(domain, idx):
+    """A short pipeline around one op: nearest demosaic (which has no
+    proxy) before an sRGB op, the sRGB skip after a demosaic op."""
+    return {"bayer": f"Bayer_{idx:02d}_Demosaic_01_sRGB_10",
+            "demosaic": f"Bayer_02_Demosaic_{idx:02d}_sRGB_10",
+            "srgb": f"Bayer_02_Demosaic_01_sRGB_{idx:02d}"}[domain]
+
+
+def _op_matches_jax(domain, idx):
+    """The op through Pipeline natively and, where it has a proxy, with
+    use_proxy=True, against the JAX pipeline at 1e-4 (conv sums run in
+    another order) with the JAX init's weights and logits carried across."""
+    arch = _zoo_arch(domain, idx)
+    x = _mosaic((2, 32, 32, 1), seed=24)
+    modes = [False]
+    if rt.get_op(domain, idx).proxy_apply is not None:
+        modes.append(True)
+    for use_proxy in modes:
+        pj, st, pt = _pair(arch, use_proxy=use_proxy, seed=idx)
+        with torch.no_grad():
+            got = pt(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(pj(st, x)),
+                                   atol=1e-4, err_msg=f"use_proxy={use_proxy}")
+
+
 @pytest.mark.parametrize("domain,idx", [
     ("demosaic", 4), ("srgb", 2), ("srgb", 3), ("srgb", 4), ("srgb", 8),
     ("srgb", 9), ("srgb", 14), ("srgb", 15), ("srgb", 16), ("srgb", 17),
     ("srgb", 18)])
 def test_unported_op_raises(domain, idx):
-    arch = {"demosaic": f"Bayer_02_Demosaic_{idx:02d}_sRGB_10",
-            "srgb": f"Bayer_02_Demosaic_03_sRGB_{idx:02d}"}[domain]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rt.Pipeline(arch, device="cpu")
+    """These ops of the zoo build and run in the port, natively and as
+    proxies, and match the JAX ops (_op_matches_jax)."""
+    _op_matches_jax(domain, idx)
+
+
+@pytest.mark.parametrize("domain,idx", [
+    ("demosaic", 2), ("demosaic", 3), ("srgb", 6), ("srgb", 7)])
+def test_op_and_proxy_match_jax(domain, idx):
+    """The other ops with a proxy; test_torch_ops.py holds their native
+    forms too."""
+    _op_matches_jax(domain, idx)
+
+
+@pytest.mark.parametrize("use_proxy", [False, True])
+@pytest.mark.parametrize("domain", ["bayer", "demosaic", "srgb"])
+def test_every_op_builds_with_the_jax_weights(domain, use_proxy):
+    """Every op builds in both modes and owns the modules and logits the
+    JAX pipeline's init makes, of the same shapes."""
+    for spec in rt.pool(domain):
+        arch = _zoo_arch(domain, rj.registry.op_index(domain, spec.name))
+        st = _to_numpy(rj.Pipeline(arch, use_proxy=use_proxy).init(
+            jax.random.PRNGKey(0)))
+        pt = rt.Pipeline(arch, use_proxy, device="cpu")
+        assert sorted(pt.weights) == sorted(st["weights"]), arch
+        assert {k: tuple(v.shape) for k, v in pt.logits.items()} == \
+            {k: v.shape for k, v in st["logits"].items()}, arch
+        pt.load_state(convert.state_from_jax(st))
+
+
+def test_bank_gives_each_pipeline_its_weights():
+    """state_from_bank picks the native nets, the proxies in proxy mode and
+    bm3d always; the result loads."""
+    bank = load_network(CKPT)
+    for arch, use_proxy, names in (
+            (SLICE2, False, ["path_bayer"]),
+            (SLICE2, True, ["fastnlm", "laplacian", "median", "path_bayer"]),
+            ("Bayer_02_Demosaic_04_sRGB_15_12", False,
+             ["bm3d", "demosaicnet", "path_bgr"])):
+        pt = rt.Pipeline(arch, use_proxy, device="cpu")
+        state = convert.state_from_bank(bank, pt)
+        assert sorted(state["weights"]) == names
+        pt.load_state(state)
+    np.testing.assert_array_equal(
+        pt.weights["bm3d"].conv1.weight.detach().numpy(),
+        bank["bm3d"]["conv1"]["w"].transpose(3, 2, 0, 1))
+
+
+def test_conditional_init_draws_small_weights_then_base_logits():
+    pt = rt.Pipeline("Bayer_02_Demosaic_01_sRGB_17", device="cpu")
+    flat = pt.logits["step3_conditional_wb_manual"].detach()
+    assert flat.shape == (454,)
+    np.testing.assert_allclose(flat[-3:].numpy(), [-1.38] * 3)
+    assert 0.005 < float(flat[:-3].std()) < 0.015
 
 
 def test_parse_architecture_matches_jax():

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's SID serving path, on one NVIDIA GPU.
+"""Where the time goes in one of the port's SID serving paths, on one GPU.
 
-    python3 tools/profile_torch_serving.py [--storage f32|bf16]
+    python3 tools/profile_torch_serving.py [--arch ARCH] [--storage f32|bf16]
 
-Serves the two frames of chip_smoke.py's phase 4 through the same pipeline
-and serving function (its set-up is imported from there, TF32 off), once to
-warm up and once under torch.profiler.  Prints
+ARCH is an architecture string, by default chip_smoke.SLICE2 (median and
+fast NLM); chip_smoke.SLICE1 is the path with the bilateral.  Serves the two
+frames of chip_smoke.py's phase 4 through the same pipeline and serving
+function (its set-up is imported from there, TF32 off), once to warm up and
+once under torch.profiler.  Prints
 the device time by kernel group, the device busy share of the call's wall
 time, and the ten longest kernels.  Exits 1 without CUDA or when the
 profiler records no device time.
@@ -24,12 +26,13 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (load_pipeline, make_frames, make_serve,  # noqa: E402
-                        nvidia_smi, tf32_off)
+from chip_smoke import (SLICE2, load_pipeline, make_frames,  # noqa: E402
+                        make_serve, nvidia_smi, tf32_off)
 from reconfigisp_tpu_torch import precision  # noqa: E402
 
 # kernel-name fragments -> group, first match wins
-_GROUPS = (("bilateral", "bilateral kernel"),
+_GROUPS = (("bilateral", "bilateral kernel"), ("median", "median kernel"),
+           ("fastnlm", "fastnlm kernel"),
            ("nchwtonhwc", "layout"), ("nhwctonchw", "layout"),
            ("transpose", "layout"),
            ("conv", "convolution"), ("xmma", "convolution"),
@@ -48,6 +51,7 @@ def _group(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=SLICE2)
     ap.add_argument("--storage", default="f32", choices=("f32", "bf16"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -55,7 +59,7 @@ def main() -> int:
         return 1
     tf32_off()
     dev = torch.device("cuda")
-    serve = make_serve(load_pipeline(dev), dev)
+    serve = make_serve(load_pipeline(dev, args.arch), dev)
     frames = make_frames(dev)
 
     with precision.cnn_storage(args.storage):
@@ -92,7 +96,8 @@ def main() -> int:
             reach = end
     busy_ms = busy_us / 1e3
     print(f"nvidia-smi: {nvidia_smi()}")
-    print(f"device: {torch.cuda.get_device_name(0)} storage={args.storage} "
+    print(f"device: {torch.cuda.get_device_name(0)} arch={args.arch} "
+          f"storage={args.storage} "
           f"frames=2 wall_ms={wall_ms:.3f} "
           f"kernel_ms={kernel_ms:.3f} busy_ms={busy_ms:.3f} "
           f"busy_share={busy_ms / wall_ms:.4f} "
