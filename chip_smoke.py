@@ -58,9 +58,10 @@ BF16_TOL = 5e-2        # whole path, bf16 vs f32 CNN storage: 8-bit mantissa
                        # through 14 conv layers
 
 # name -> (module, plain form, params per image, tolerance against the plain
-# form, TPU kernel it replaces).  Tolerances: bilateral and fast NLM use expf
-# on both sides with sums reordered (bilateral) or rounded step by step (fast
-# NLM); the median selects one of the input values, so it is exact.
+# form, TPU kernel it replaces).  Tolerances: bilateral uses expf on both
+# sides with sums reordered; fast NLM sums its boxes in another order and
+# takes exp2f of the box sum times one folded scale; the median selects one
+# of the input values, so it is exact.
 KERNELS = {
     "bilateral": (kb, kb.bilateral_plain, 3, 2e-5,
                   "reconfigisp_tpu/ops/pallas_kernels.py:113"),

@@ -8,52 +8,88 @@
 // s = clip(floor(7 p1), 0, 6) + 1 and the decay h = 1 + 99 p2, on the 0..255
 // scale x~ = 255 x and for every search offset o with max(|oy|, |ox|) <= s:
 //   D_o(q) = (x~(reflect(q + o)) - x~(q))^2 on the H x W frame,
-//   d2_o   = the separable (2b+1)^2 box mean of D_o, whose reflect padding
-//            applies to the field D_o itself (rows summed and divided by
-//            2b+1, then columns),
-//   w_o    = exp(-d2_o / h^2),
+//   S_o    = the sum of D_o over the (2b+1)^2 box, whose reflect padding
+//            applies to the field D_o itself,
+//   w_o    = exp(-S_o / ((2b+1)^2 h^2)),
 //   out    = clip(sum_o w_o x~(reflect(p + o)) / max(sum_o w_o, 1e-8) / 255, 0, 1).
 // The Pallas kernel boxes differences of the reflect-padded image instead,
 // so near every frame edge it differs from this form (and from this kernel).
 //
-// Design.  A 32x16 block computes a 32x16 tile of output pixels, all C
-// channels.  It stages x~ over the tile plus a 14-pixel halo (b + s <= 14)
-// in dynamic shared memory, indexed by the unreflected frame coordinate and
+// Design.  A block of 256 threads computes a 32x32 tile of output pixels,
+// all C channels.  It stages x~ over the tile plus a 14-pixel halo (b + s <=
+// 14) in shared memory, indexed by the unreflected frame coordinate and
 // filled from the reflected one, with two tables that map every position of
-// the box's reach to the staged index of its reflection.  Per offset, in the
-// JAX form's order (ox outer, oy inner, each image's own s only):
-//   1. D_o over the tile plus a b halo, into shared memory;
-//   2. the row sums of the box, into shared memory;
-//   3. each thread's column sum, the exp, and num and den in registers.
-// So a box costs 2(2b+1) adds per pixel instead of (2b+1)^2, and nothing but
-// the input and the output goes through device memory.  Sums run in the
-// box's own order, and the products and sums are rounded step by step
-// (__fmul_rn, __fadd_rn) as the plain forms round them; `expf` keeps the
-// result within 5e-5 of the plain form.
+// the box's reach to the staged index of its reflection.  The block radius
+// is uniform over the batch: the kernel reads it on the device and switches
+// into a body templated on it, so every box loop unrolls into registers.
+// Per offset, in the JAX form's order (ox outer, oy inner, each image's own
+// s only), two phases:
+//   A. each of the first (32 + 2b) * 4 threads takes 8 adjacent columns of
+//      one row of the box's reach, forms the 8 + 2b differences D from the
+//      staged image in registers and writes the 8 horizontal sums of 2b+1
+//      of them to shared memory (its staged addresses are set once, before
+//      the offset loop);
+//   B. every thread owns 4 rows of one output column: it loads the 4 + 2b
+//      horizontal sums of its column, forms the 4 vertical sums of 2b+1,
+//      and turns each into w = exp2(S * scale), with 1 / (2b+1)^2, 1 / h^2
+//      and log2(e) folded into one factor per image, then into num and den
+//      in registers.
+// The horizontal sums are double-buffered: phase A of offset i+1 writes one
+// buffer while phase B of offset i reads the other, so one barrier per
+// offset.  Row pitches are padded to 1 mod 8 words, so both phases' shared
+// accesses are free of bank conflicts inside the frame.  Every box is a
+// direct sum of 2b+1 register values, never a running sum: D reaches 255^2,
+// and a sliding window's subtraction would leave an absolute error near
+// ulp(sum) where the sum should be near 0.  The only division per value is
+// num / den at the end.  Sums run in another order than the plain form's
+// (horizontal first), and exp2f with one scale replaces expf of a quotient;
+// both stay within 5e-5 of it (tests/test_torch_windowed.py emulates this
+// arithmetic on the CPU).
 //
 // Bound on the H100.  Per pixel and channel and per offset the function
 // needs the difference and its square, the separable box and one exp with
 // the operations around it; the interior is symmetric (the box of D_o at p
 // is the box of D_-o at p + o), so ((2s+1)^2 - 1) / 2 distinct boxes and
-// exps.  At b = s = 4 that is about 900 FP32 operations against 8 bytes
-// moved, so the operations bound it (chip_smoke.fastnlm_bound_ms).  This
-// kernel computes every offset's box, with the D field's halo and the row
-// sums going through shared memory, so it is bound by the shared-memory
-// port, several times above the function's bound.
+// exps, and the exps bound it (chip_smoke.fastnlm_bound).  This kernel
+// computes every offset's box, so it can reach at most about half of that
+// bound.  The symmetry is left out: under the border rule it fails within
+// b + s pixels of every frame edge, and every 512^2 serving tile has such a
+// ring; and the partner p + o belongs to another thread, often another
+// block, so its weight would need shared num and den accumulators or the
+// weights recomputed over an s-wide halo, which at tiles that fit in shared
+// memory eats much of the saving.  Per value and offset the kernel issues
+// about 10 shared-memory words and 30 FP32 operations, so the shared-memory
+// port and the issue rate bound it, not the exps.  PERF.md gives its time,
+// registers, shared memory and blocks per SM, measured on the card.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxR = 7;                      // largest b and largest s
-constexpr int kHalo = 2 * kMaxR;              // reach of b + s
-constexpr int kBlockW = 32;
-constexpr int kBlockH = 16;
-constexpr int kThreads = kBlockW * kBlockH;
-constexpr int kSH = kBlockH + 2 * kHalo;      // 44 staged rows
-constexpr int kSW = kBlockW + 2 * kHalo;      // 60 staged columns
-constexpr int kDH = kBlockH + 2 * kMaxR;      // 30 rows of the D field
-constexpr int kDW = kBlockW + 2 * kMaxR;      // 46 columns of the D field
+constexpr int kMaxR = 7;                          // largest b and largest s
+constexpr int kHalo = 2 * kMaxR;                  // reach of b + s
+constexpr int kTile = 32;                         // output tile, kTile^2 pixels
+constexpr int kRun = 8;                           // phase A: columns per item
+constexpr int kRuns = kTile / kRun;               // phase A: items per row
+constexpr int kRows = 4;                          // phase B: rows per thread
+constexpr int kThreads = kTile * kTile / kRows;   // 256
+constexpr int kStaged = kTile + 2 * kHalo;        // 60 staged rows and columns
+constexpr int kReach = kTile + 2 * kMaxR;         // 46 positions a box reaches
+static_assert(kReach * kRuns <= kThreads, "one phase-A item per thread");
+constexpr float kLog2e = 1.4426950408889634f;
+
+// a row pitch of at least `words`, 1 mod 8: eight consecutive rows then
+// fall in distinct banks modulo 8, and kRun * C columns apart fill the rest
+__host__ __device__ constexpr int pitch(int words) { return words + (9 - words % 8) % 8; }
+template <int C> __host__ __device__ constexpr int stage_pitch() { return pitch(kStaged * C); }
+template <int C> __host__ __device__ constexpr int sums_pitch() { return pitch(kTile * C); }
+template <int C> __host__ __device__ constexpr int sums_words() { return kReach * sums_pitch<C>(); }
+
+template <int C>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (kStaged * stage_pitch<C>() + 2 * sums_words<C>()) +
+         sizeof(int) * 2 * kReach;
+}
 
 __device__ __forceinline__ int reflect(int i, int n) {
   if (i < 0) i = -i;
@@ -61,29 +97,134 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-template <int C>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * C * (kSH * kSW + kDH * kDW + kBlockH * kDW) +
-         sizeof(int) * (kDH + kDW);
+// Phase A: the horizontal box sums of one item (8 columns of one row of the
+// box's reach) for offset word `toff`, into dst (the item's first word).
+template <int B, int C>
+__device__ __forceinline__ void row_sums(const float* __restrict__ stage,
+                                         const int (&ctr)[kRun + 2 * B],
+                                         int toff, float* __restrict__ dst) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float d[kRun + 2 * B];
+#pragma unroll
+    for (int j = 0; j < kRun + 2 * B; ++j) {
+      const float t = stage[ctr[j] + toff + c] - stage[ctr[j] + c];
+      d[j] = t * t;
+    }
+#pragma unroll
+    for (int m = 0; m < kRun; ++m) {
+      float acc = d[m];
+#pragma unroll
+      for (int i = 1; i <= 2 * B; ++i) acc += d[m + i];
+      dst[m * C + c] = acc;
+    }
+  }
+}
+
+// Phase B: the vertical box sums of one thread's kRows pixels from the
+// horizontal sums at `sums`, their weights, and num and den.
+template <int B, int C>
+__device__ __forceinline__ void accumulate(const float* __restrict__ sums,
+                                           const float* __restrict__ tap,
+                                           float neg_scale, float (&num)[kRows][C],
+                                           float (&den)[kRows][C]) {
+  constexpr int HP = sums_pitch<C>(), SP = stage_pitch<C>();
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float hs[kRows + 2 * B];
+#pragma unroll
+    for (int m = 0; m < kRows + 2 * B; ++m) hs[m] = sums[m * HP + c];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float box = hs[r];
+#pragma unroll
+      for (int i = 1; i <= 2 * B; ++i) box += hs[r + i];
+      const float wgt = exp2f(box * neg_scale);
+      num[r][c] += wgt * tap[r * SP + c];
+      den[r][c] += wgt;
+    }
+  }
+}
+
+// Everything after the staging, for block radius B.
+template <int B, int C>
+__device__ __forceinline__ void nlm_tile(const float* __restrict__ stage,
+                                         float* __restrict__ sums,
+                                         const int* __restrict__ srow,
+                                         const int* __restrict__ scol, int s,
+                                         float neg_scale, float* __restrict__ dst,
+                                         int h, int w, int oy0, int ox0) {
+  constexpr int SP = stage_pitch<C>(), HP = sums_pitch<C>();
+  const int tid = threadIdx.x;
+
+  // phase A's item: row ar of the box's reach (position oy0 - B + ar), the
+  // columns from ox0 + aq * kRun; the staged word of each D centre
+  const int ar = tid / kRuns, aq = tid % kRuns;
+  const bool a_on = ar < kTile + 2 * B;
+  const int a_dst = ar * HP + aq * kRun * C;
+  int ctr[kRun + 2 * B];
+  const int crow = a_on ? srow[ar + kMaxR - B] * SP : 0;
+#pragma unroll
+  for (int j = 0; j < kRun + 2 * B; ++j)
+    ctr[j] = crow + (a_on ? scol[aq * kRun + j + kMaxR - B] * C : 0);
+
+  // phase B's pixels: rows by .. by + kRows - 1 of column bx of the tile
+  const int bx = tid % kTile, by = tid / kTile * kRows;
+  const float* b_sums = sums + by * HP + bx * C;
+  const float* b_tap = stage + (by + kHalo) * SP + (bx + kHalo) * C;
+  float num[kRows][C], den[kRows][C];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      num[r][c] = 0.f;
+      den[r][c] = 0.f;
+    }
+  }
+
+  // step i runs phase A of offset i into buffer i % 2 and phase B of offset
+  // i - 1 from the other buffer; one barrier per step
+  const int side = 2 * s + 1, count = side * side;
+  for (int i = 0; i <= count; ++i) {
+    if (i < count && a_on) {
+      const int dx = i / side - s, dy = i % side - s;
+      row_sums<B, C>(stage, ctr, dy * SP + dx * C, sums + (i & 1) * sums_words<C>() + a_dst);
+    }
+    if (i > 0) {
+      const int dx = (i - 1) / side - s, dy = (i - 1) % side - s;
+      accumulate<B, C>(b_sums + ((i - 1) & 1) * sums_words<C>(), b_tap + dy * SP + dx * C,
+                       neg_scale, num, den);
+    }
+    __syncthreads();
+  }
+
+  const int ox = ox0 + bx;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int oy = oy0 + by + r;
+    if (oy < h && ox < w) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        dst[(static_cast<size_t>(oy) * w + ox) * C + c] =
+            fminf(fmaxf(num[r][c] / fmaxf(den[r][c], 1e-8f) / 255.f, 0.f), 1.f);
+    }
+  }
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fastnlm_kernel(const float* __restrict__ x, const float* __restrict__ params,
                float* __restrict__ out, int h, int w) {
   extern __shared__ float smem[];
-  float* stage = smem;                          // [kSH][kSW * C]: x~
-  float* field = stage + kSH * kSW * C;         // [kDH][kDW * C]: D_o
-  float* rows = field + kDH * kDW * C;          // [kBlockH][kDW * C]: row sums
-  int* srow = reinterpret_cast<int*>(rows + kBlockH * kDW * C);  // [kDH]
-  int* scol = srow + kDH;                                         // [kDW]
+  constexpr int SP = stage_pitch<C>();
+  float* stage = smem;                                  // [kStaged][SP]: x~
+  float* sums = stage + kStaged * SP;                   // 2 x [kReach][HP]
+  int* srow = reinterpret_cast<int*>(sums + 2 * sums_words<C>());  // [kReach]
+  int* scol = srow + kReach;                                         // [kReach]
 
-  const int n = blockIdx.z;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kBlockW + tx;
-
-  // Parameter arithmetic rounded step by step, as the JAX and PyTorch forms
-  // compute it (no FMA contraction).
+  const int n = blockIdx.z, tid = threadIdx.x;
+  // parameters as the JAX and PyTorch forms compute them (no contraction);
+  // the weight is exp2(S * neg_scale), neg_scale = -log2(e) / ((2b+1)^2 h^2)
   const int b =
       static_cast<int>(fminf(fmaxf(floorf(__fmul_rn(params[0], 7.f)), 0.f), 6.f)) + 1;
   const int s =
@@ -91,83 +232,42 @@ fastnlm_kernel(const float* __restrict__ x, const float* __restrict__ params,
   const float hd = __fadd_rn(1.f, __fmul_rn(99.f, params[3 * n + 2]));
   const float inv_h2 = __fdiv_rn(1.f, __fmul_rn(hd, hd));
   const float k = static_cast<float>(2 * b + 1);
+  const float neg_scale = -kLog2e * inv_h2 / (k * k);
 
-  const int oy0 = blockIdx.y * kBlockH, ox0 = blockIdx.x * kBlockW;
+  const int oy0 = blockIdx.y * kTile, ox0 = blockIdx.x * kTile;
   const float* img = x + static_cast<size_t>(n) * h * w * C;
-  for (int sy = ty; sy < kSH; sy += kBlockH) {
-    const size_t yoff = static_cast<size_t>(reflect(oy0 - kHalo + sy, h)) * w;
-    for (int sx = tx; sx < kSW; sx += kBlockW) {
-      const float* src = img + (yoff + reflect(ox0 - kHalo + sx, w)) * C;
+  for (int i = tid; i < kStaged * kStaged; i += kThreads) {
+    const int sy = i / kStaged, sx = i % kStaged;
+    const float* src =
+        img + (static_cast<size_t>(reflect(oy0 - kHalo + sy, h)) * w +
+               reflect(ox0 - kHalo + sx, w)) * C;
 #pragma unroll
-      for (int c = 0; c < C; ++c) stage[sy * kSW * C + sx * C + c] = __fmul_rn(src[c], 255.f);
-    }
+    for (int c = 0; c < C; ++c) stage[sy * SP + sx * C + c] = __fmul_rn(src[c], 255.f);
   }
   // staged index of the reflection of each position of the box's reach; the
   // clamp only touches positions that no output pixel of the frame reads
-  for (int i = tid; i < kDH + kDW; i += kThreads) {
-    if (i < kDH) {
-      srow[i] = min(max(reflect(oy0 - kMaxR + i, h) - (oy0 - kHalo), kMaxR), kSH - 1 - kMaxR);
+  for (int i = tid; i < 2 * kReach; i += kThreads) {
+    if (i < kReach) {
+      srow[i] = min(max(reflect(oy0 - kMaxR + i, h) - (oy0 - kHalo), kMaxR),
+                    kStaged - 1 - kMaxR);
     } else {
-      const int j = i - kDH;
-      scol[j] = min(max(reflect(ox0 - kMaxR + j, w) - (ox0 - kHalo), kMaxR), kSW - 1 - kMaxR);
+      const int j = i - kReach;
+      scol[j] = min(max(reflect(ox0 - kMaxR + j, w) - (ox0 - kHalo), kMaxR),
+                    kStaged - 1 - kMaxR);
     }
   }
   __syncthreads();
 
-  float num[C], den[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    num[c] = 0.f;
-    den[c] = 0.f;
+  float* dst = out + static_cast<size_t>(n) * h * w * C;
+  switch (b) {
+    case 1: nlm_tile<1, C>(stage, sums, srow, scol, s, neg_scale, dst, h, w, oy0, ox0); break;
+    case 2: nlm_tile<2, C>(stage, sums, srow, scol, s, neg_scale, dst, h, w, oy0, ox0); break;
+    case 3: nlm_tile<3, C>(stage, sums, srow, scol, s, neg_scale, dst, h, w, oy0, ox0); break;
+    case 4: nlm_tile<4, C>(stage, sums, srow, scol, s, neg_scale, dst, h, w, oy0, ox0); break;
+    case 5: nlm_tile<5, C>(stage, sums, srow, scol, s, neg_scale, dst, h, w, oy0, ox0); break;
+    case 6: nlm_tile<6, C>(stage, sums, srow, scol, s, neg_scale, dst, h, w, oy0, ox0); break;
+    default: nlm_tile<7, C>(stage, sums, srow, scol, s, neg_scale, dst, h, w, oy0, ox0); break;
   }
-  const int span = (kBlockW + 2 * b) * C;   // D-field row of the box's reach
-  const int first = (kMaxR - b) * C;        // its first element in a row
-  for (int dx = -s; dx <= s; ++dx) {
-    for (int dy = -s; dy <= s; ++dy) {
-      // 1. D_o over the tile plus a b halo (rows and columns kMaxR - b ..)
-      for (int r = ty; r < kBlockH + 2 * b; r += kBlockH) {
-        const int qy = r + kMaxR - b;
-        const float* ctr_row = stage + srow[qy] * kSW * C;
-        const float* tap_row = ctr_row + dy * kSW * C;
-        for (int e = tx; e < span; e += kBlockW) {
-          const int qx = e / C + kMaxR - b, c = e % C;
-          const int sx = scol[qx] * C + c;
-          const float d = __fsub_rn(tap_row[sx + dx * C], ctr_row[sx]);
-          field[qy * kDW * C + qx * C + c] = __fmul_rn(d, d);
-        }
-      }
-      __syncthreads();
-      // 2. row sums of the box over the tile's rows, divided by 2b+1
-      for (int e = tx; e < span; e += kBlockW) {
-        const float* col = field + (ty + kMaxR) * kDW * C + first + e;
-        float acc = 0.f;
-        for (int i = -b; i <= b; ++i) acc = __fadd_rn(acc, col[i * kDW * C]);
-        rows[ty * kDW * C + first + e] = __fdiv_rn(acc, k);
-      }
-      __syncthreads();
-      // 3. column sums, weight, and this pixel's num and den; the next
-      // offset's step 1 writes only the D field, and its sync orders this
-      // step's reads of the row sums before the next step 2 writes them
-      const float* row = rows + ty * kDW * C;
-      const float* tap = stage + (ty + kHalo + dy) * kSW * C + (tx + kHalo + dx) * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float acc = 0.f;
-        for (int j = -b; j <= b; ++j) acc = __fadd_rn(acc, row[(tx + kMaxR + j) * C + c]);
-        const float d2 = __fdiv_rn(acc, k);
-        const float wgt = expf(__fmul_rn(-d2, inv_h2));
-        num[c] = __fadd_rn(num[c], __fmul_rn(wgt, tap[c]));
-        den[c] = __fadd_rn(den[c], wgt);
-      }
-    }
-  }
-
-  const int oy = oy0 + ty, ox = ox0 + tx;
-  if (oy >= h || ox >= w) return;
-  float* dst = out + ((static_cast<size_t>(n) * h + oy) * w + ox) * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    dst[c] = fminf(fmaxf(num[c] / fmaxf(den[c], 1e-8f) / 255.f, 0.f), 1.f);
 }
 
 template <int C>
@@ -177,9 +277,8 @@ int launch(const float* x, const float* params, float* out, int n, int h, int w,
   cudaError_t err = cudaFuncSetAttribute(
       fastnlm_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kBlockW, kBlockH);
-  const dim3 grid((w + kBlockW - 1) / kBlockW, (h + kBlockH - 1) / kBlockH, n);
-  fastnlm_kernel<C><<<grid, block, bytes, stream>>>(x, params, out, h, w);
+  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, n);
+  fastnlm_kernel<C><<<grid, kThreads, bytes, stream>>>(x, params, out, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 

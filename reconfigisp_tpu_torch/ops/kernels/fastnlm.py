@@ -7,8 +7,11 @@ CPU it computes `fastnlm_plain`, the form of
 reconfigisp_tpu/ops/denoise.py:_fastnlm_jnp over the whole frame, border
 rule included, which is also the kernel's reference on the card.  (The
 Pallas kernel boxes differences of the reflect-padded image, so near the
-frame edges it differs from both.)  The kernel has no backward yet, so on
-CUDA it refuses inputs that require grad.
+frame edges it differs from both.)  The kernel sums each box horizontally
+first and takes exp2 of the box sum times one scale per image, where this
+form divides by 2b+1 twice and by h^2 and takes exp: the two agree within
+5e-5.  The kernel has no backward yet, so on CUDA it refuses inputs that
+require grad.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 [block01, search01, decay01].  The block radius comes from params[0, 0] for

@@ -104,8 +104,29 @@ def _nlm_rows(block, n):
                                    (1, 520, 776, 3)])
 @pytest.mark.parametrize("block", range(1, 8))
 def test_fastnlm_kernel_matches_plain(cuda, shape, block):
-    """Same sums in the same order; expf on both sides: 5e-5."""
+    """Sums in another order, one folded scale and exp2f against the plain
+    form's expf of a quotient: 5e-5."""
     x, p = _case(shape, _nlm_rows(block, shape[0]), cuda)
+    before = kf.launches
+    got = kf.fastnlm(x, p)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    want = kf.fastnlm_plain(x, p)
+    assert float((got - want).abs().max()) <= 5e-5
+
+
+@pytest.mark.parametrize("shape,block,search", [
+    ((2, 9, 200, 3), 1, (7, 4)), ((2, 9, 200, 3), 4, (7, 4)),
+    ((2, 9, 200, 3), 7, (7, 4)), ((2, 200, 9, 1), 1, (7, 4)),
+    ((2, 200, 9, 1), 4, (7, 4)), ((2, 200, 9, 1), 7, (7, 4)),
+    ((1, 520, 776, 3), 7, (7,)),
+])
+def test_fastnlm_kernel_ragged_and_narrow_frames(cuda, shape, block, search):
+    """Frames that no 32x32 tile divides, one side just above MAX_R: the
+    ragged tiles are masked and every thread still reaches every barrier."""
+    rows = [[(block - 0.5) / 7.0 if i == 0 else 0.0, (s - 0.5) / 7.0,
+             0.83 - 0.33 * i] for i, s in enumerate(search)]
+    x, p = _case(shape, rows, cuda)
     before = kf.launches
     got = kf.fastnlm(x, p)
     torch.cuda.synchronize()

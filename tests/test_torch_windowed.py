@@ -110,6 +110,71 @@ def test_fastnlm_plain_vs_pallas_interpret_interior_and_border():
     assert np.abs(got - want).max() > 1e-3
 
 
+def _nlm_kernel_arithmetic(x, params):
+    """csrc/fastnlm.cu's arithmetic in plain PyTorch: each offset's box is
+    summed horizontally, then vertically, each a direct sum of 2b+1 terms in
+    the kernel's order, and the weight is exp2 of the box sum times one factor
+    -log2(e) / ((2b+1)^2 h^2) per image."""
+    n, h, w, c = x.shape
+    b = int(kf.size01_to_radius(params[0, 0]))
+    search = kf.size01_to_radius(params[:, 1])[:, None, None, None]
+    hd = 1.0 + 99.0 * params[:, 2]
+    k = float(2 * b + 1)
+    neg_scale = (-1.4426950408889634 * (1.0 / (hd * hd)) / (k * k))
+    neg_scale = neg_scale[:, None, None, None]
+    x255 = (x * 255.0).permute(0, 3, 1, 2)
+    padded = torch.nn.functional.pad(x255, (kf.MAX_R,) * 4, mode="reflect")
+    s_max = int(search.max())
+    num = torch.zeros_like(x255)
+    den = torch.zeros_like(x255)
+    for dx in range(-s_max, s_max + 1):
+        for dy in range(-s_max, s_max + 1):
+            tap = padded[:, :, kf.MAX_R + dy:kf.MAX_R + dy + h,
+                         kf.MAX_R + dx:kf.MAX_R + dx + w]
+            d = (tap - x255) ** 2
+            cols = torch.nn.functional.pad(d, (b, b, 0, 0), mode="reflect")
+            rows = cols[..., 0:w]
+            for j in range(1, 2 * b + 1):
+                rows = rows + cols[..., j:j + w]
+            rows = torch.nn.functional.pad(rows, (0, 0, b, b), mode="reflect")
+            box = rows[:, :, 0:h]
+            for i in range(1, 2 * b + 1):
+                box = box + rows[:, :, i:i + h]
+            include = (max(abs(dy), abs(dx)) <= search).to(x.dtype)
+            wgt = include * torch.exp2(box * neg_scale)
+            num = num + wgt * tap
+            den = den + wgt
+    out = (num / torch.clamp(den, min=1e-8) / 255.0).permute(0, 2, 3, 1)
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def _nlm_test_image(kind, c):
+    """Uniform noise, or a dark-bright step with a little noise: the step's
+    D reaches ~255^2 right beside values near 0."""
+    rng = np.random.default_rng(49)
+    shape = (7, 20, 28, c)
+    if kind == "noise":
+        return rng.uniform(0, 1, shape).astype(np.float32)
+    step = np.where(np.arange(shape[2]) < 13, 0.02, 0.98)[None, None, :, None]
+    return np.clip(step + rng.uniform(-0.02, 0.02, shape), 0, 1).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("kind", ["noise", "edge"])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("block", range(1, 8))
+def test_fastnlm_kernel_arithmetic_within_tolerance(block, c, kind):
+    """The CUDA kernel's order of sums, folded scale and exp2 against the
+    plain form, before any card: within the 5e-5 that the card holds it to.
+    Per-image search radii 1-7 and decays 0.05-0.83 (h = 5.95 to 83.2)."""
+    x = torch.from_numpy(_nlm_test_image(kind, c))
+    p = torch.tensor([[_size01(block) if i == 0 else 0.0, _size01(i + 1),
+                       0.05 + 0.13 * i] for i in range(7)], dtype=torch.float32)
+    got = _nlm_kernel_arithmetic(x, p)
+    want = kf.fastnlm_plain(x, p)
+    assert float((got - want).abs().max()) <= 5e-5
+
+
 def test_fastnlm_denoises():
     rng = np.random.default_rng(46)
     clean = np.full((1, 16, 16, 1), 0.5, np.float32)
