@@ -97,27 +97,81 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// Phase A: the horizontal box sums of one item (8 columns of one row of the
-// box's reach) for offset word `toff`, into dst (the item's first word).
+// exp2 on the special-function unit; a result below 2^-126 flushes to 0,
+// which no sum of weights can tell from a subnormal
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// out[m] = v(m) + ... + v(m + 2B) for m < N: every window is a sum of its own
+// 2B+1 terms, never a running sum with a subtraction.  The windows go in
+// groups of up to 2B+1 that all hold one pivot p (the group's last window
+// starts there): a suffix sum of v(m .. p-1) and a prefix sum of v(p ..
+// m+2B) make each, in 2B + 2G adds for a group of G windows, not 2B G.
+// All terms are D values, never negative, so the order leaves the error
+// relative to the window's own sum.  Where one group holds all N windows,
+// each term is formed just before it is added (right to left from p - 1,
+// then left to right from p), so few stay live; else they are formed once
+// into registers first.
+template <int N, int B, typename V>
+__device__ __forceinline__ void window_sums(V v, float (&out)[N]) {
+  constexpr int L = 2 * B + 1;
+  if constexpr (N > L) {
+    float t[N + 2 * B];
+#pragma unroll
+    for (int j = 0; j < N + 2 * B; ++j) t[j] = v(j);
+#pragma unroll
+    for (int g = 0; g < N; g += L) {
+      const int p = (g + L < N ? g + L : N) - 1;
+#pragma unroll
+      for (int i = 1; i < L; ++i) {   // suffix sums, right to left
+        const int m = p - i;
+        if (m >= g) out[m] = (i == 1) ? t[m] : t[m] + out[m + 1];
+      }
+      float pre = t[p];
+#pragma unroll
+      for (int i = 0; i < L; ++i) {   // prefix sums; window m ends at p + i
+        if (i > 0) pre += t[p + i];
+        const int m = p + i - (L - 1);
+        if (m >= g && m < p) out[m] += pre;
+      }
+      out[p] = pre;
+    }
+  } else {
+    constexpr int p = N - 1;
+#pragma unroll
+    for (int m = p - 1; m >= 0; --m) out[m] = (m == p - 1) ? v(m) : v(m) + out[m + 1];
+    float pre = v(p);
+#pragma unroll
+    for (int i = 1; i < L; ++i) {
+      pre += v(p + i);
+      const int m = p + i - (L - 1);
+      if (m >= 0 && m < p) out[m] += pre;
+    }
+    out[p] = pre;
+  }
+}
+
+// Phase A: the horizontal box sums of one item (kRun columns of one row of
+// the box's reach) for offset word `toff`, into dst (the item's first word);
+// ctr[j] is the staged word of D column j's centre.
 template <int B, int C>
 __device__ __forceinline__ void row_sums(const float* __restrict__ stage,
                                          const int (&ctr)[kRun + 2 * B],
                                          int toff, float* __restrict__ dst) {
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    float d[kRun + 2 * B];
+    float sum[kRun];
+    window_sums<kRun, B>(
+        [&](int j) {
+          const float t = stage[ctr[j] + toff + c] - stage[ctr[j] + c];
+          return t * t;
+        },
+        sum);
 #pragma unroll
-    for (int j = 0; j < kRun + 2 * B; ++j) {
-      const float t = stage[ctr[j] + toff + c] - stage[ctr[j] + c];
-      d[j] = t * t;
-    }
-#pragma unroll
-    for (int m = 0; m < kRun; ++m) {
-      float acc = d[m];
-#pragma unroll
-      for (int i = 1; i <= 2 * B; ++i) acc += d[m + i];
-      dst[m * C + c] = acc;
-    }
+    for (int m = 0; m < kRun; ++m) dst[m * C + c] = sum[m];
   }
 }
 
@@ -131,15 +185,11 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ sums,
   constexpr int HP = sums_pitch<C>(), SP = stage_pitch<C>();
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    float hs[kRows + 2 * B];
-#pragma unroll
-    for (int m = 0; m < kRows + 2 * B; ++m) hs[m] = sums[m * HP + c];
+    float box[kRows];
+    window_sums<kRows, B>([&](int m) { return sums[m * HP + c]; }, box);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      float box = hs[r];
-#pragma unroll
-      for (int i = 1; i <= 2 * B; ++i) box += hs[r + i];
-      const float wgt = exp2f(box * neg_scale);
+      const float wgt = exp2_ftz(box[r] * neg_scale);
       num[r][c] += wgt * tap[r * SP + c];
       den[r][c] += wgt;
     }
@@ -158,7 +208,7 @@ __device__ __forceinline__ void nlm_tile(const float* __restrict__ stage,
   const int tid = threadIdx.x;
 
   // phase A's item: row ar of the box's reach (position oy0 - B + ar), the
-  // columns from ox0 + aq * kRun; the staged word of each D centre
+  // columns from ox0 + aq * kRun - B; the staged word of each D centre
   const int ar = tid / kRuns, aq = tid % kRuns;
   const bool a_on = ar < kTile + 2 * B;
   const int a_dst = ar * HP + aq * kRun * C;

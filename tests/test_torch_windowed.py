@@ -110,10 +110,50 @@ def test_fastnlm_plain_vs_pallas_interpret_interior_and_border():
     assert np.abs(got - want).max() > 1e-3
 
 
+def _window_sums(v, n, b, dim):
+    """out[m] = v[m] + ... + v[m + 2b] for m < n along dim, in the order of
+    csrc/fastnlm.cu's window_sums: groups of up to 2b+1 windows share a
+    pivot p, and each window is a suffix sum of v[m .. p-1] plus a prefix
+    sum of v[p .. m+2b]."""
+    L = 2 * b + 1
+    take = lambda i: v.narrow(dim, i, 1)
+    out = [None] * n
+    for g in range(0, n, L):
+        p = min(g + L, n) - 1
+        for i in range(1, L):
+            m = p - i
+            if m >= g:
+                out[m] = take(m) if i == 1 else take(m) + out[m + 1]
+        pre = take(p)
+        for i in range(L):
+            if i > 0:
+                pre = pre + take(p + i)
+            m = p + i - (L - 1)
+            if g <= m < p:
+                out[m] = out[m] + pre
+        out[p] = pre
+    return torch.cat(out, dim)
+
+
+def _box_sums_kernel_order(d, b):
+    """The (2b+1)^2 box sum of NCHW d with reflect padding of d itself, as the
+    kernel forms it: horizontal sums for runs of 8 columns, then vertical
+    sums for runs of 4 rows, each run's windows by _window_sums."""
+    h, w = d.shape[2:]
+    fn = torch.nn.functional
+    cols = fn.pad(d, (b, b, 0, 0), mode="reflect")
+    cols = fn.pad(cols, (0, -w % 8))
+    rows = torch.cat([_window_sums(cols[..., x0:x0 + 8 + 2 * b], 8, b, 3)
+                      for x0 in range(0, w, 8)], 3)[..., :w]
+    rows = fn.pad(rows, (0, 0, b, b), mode="reflect")
+    rows = fn.pad(rows, (0, 0, 0, -h % 4))
+    return torch.cat([_window_sums(rows[:, :, y0:y0 + 4 + 2 * b], 4, b, 2)
+                      for y0 in range(0, h, 4)], 2)[:, :, :h]
+
+
 def _nlm_kernel_arithmetic(x, params):
-    """csrc/fastnlm.cu's arithmetic in plain PyTorch: each offset's box is
-    summed horizontally, then vertically, each a direct sum of 2b+1 terms in
-    the kernel's order, and the weight is exp2 of the box sum times one factor
+    """csrc/fastnlm.cu's arithmetic in plain PyTorch: each offset's box sum
+    in the kernel's order, and the weight is exp2 of it times one factor
     -log2(e) / ((2b+1)^2 h^2) per image."""
     n, h, w, c = x.shape
     b = int(kf.size01_to_radius(params[0, 0]))
@@ -131,21 +171,25 @@ def _nlm_kernel_arithmetic(x, params):
         for dy in range(-s_max, s_max + 1):
             tap = padded[:, :, kf.MAX_R + dy:kf.MAX_R + dy + h,
                          kf.MAX_R + dx:kf.MAX_R + dx + w]
-            d = (tap - x255) ** 2
-            cols = torch.nn.functional.pad(d, (b, b, 0, 0), mode="reflect")
-            rows = cols[..., 0:w]
-            for j in range(1, 2 * b + 1):
-                rows = rows + cols[..., j:j + w]
-            rows = torch.nn.functional.pad(rows, (0, 0, b, b), mode="reflect")
-            box = rows[:, :, 0:h]
-            for i in range(1, 2 * b + 1):
-                box = box + rows[:, :, i:i + h]
+            box = _box_sums_kernel_order((tap - x255) ** 2, b)
             include = (max(abs(dy), abs(dx)) <= search).to(x.dtype)
             wgt = include * torch.exp2(box * neg_scale)
             num = num + wgt * tap
             den = den + wgt
     out = (num / torch.clamp(den, min=1e-8) / 255.0).permute(0, 2, 3, 1)
     return torch.clamp(out, 0.0, 1.0)
+
+
+def test_window_sums_are_the_direct_sums():
+    """The pivot order gives every window's own 2b+1 terms: against a direct
+    sum in float64, for each radius and a run length that no group fills."""
+    v = torch.from_numpy(np.random.default_rng(50).uniform(0, 65025, (3, 22)))
+    for b in range(1, 8):
+        for n in (4, 8):
+            got = _window_sums(v[:, :n + 2 * b], n, b, 1)
+            want = torch.stack([v[:, m:m + 2 * b + 1].sum(1)
+                                for m in range(n)], 1)
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
 
 
 def _nlm_test_image(kind, c):
