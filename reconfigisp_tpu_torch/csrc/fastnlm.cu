@@ -23,28 +23,31 @@
 // is uniform over the batch: the kernel reads it on the device and switches
 // into a body templated on it, so every box loop unrolls into registers.
 // Per offset, in the JAX form's order (ox outer, oy inner, each image's own
-// s only), two phases:
-//   A. each of the first (32 + 2b) * 4 threads takes 8 adjacent columns of
-//      one row of the box's reach, forms the 8 + 2b differences D from the
-//      staged image in registers and writes the 8 horizontal sums of 2b+1
-//      of them to shared memory (its staged addresses are set once, before
-//      the offset loop);
-//   B. every thread owns 4 rows of one output column: it loads the 4 + 2b
-//      horizontal sums of its column, forms the 4 vertical sums of 2b+1,
-//      and turns each into w = exp2(S * scale), with 1 / (2b+1)^2, 1 / h^2
-//      and log2(e) folded into one factor per image, then into num and den
-//      in registers.
-// The horizontal sums are double-buffered: phase A of offset i+1 writes one
-// buffer while phase B of offset i reads the other, so one barrier per
-// offset.  Row pitches are padded to 1 mod 8 words, so both phases' shared
-// accesses are free of bank conflicts inside the frame.  Every box is a
-// direct sum of 2b+1 register values, never a running sum: D reaches 255^2,
-// and a sliding window's subtraction would leave an absolute error near
-// ulp(sum) where the sum should be near 0.  The only division per value is
-// num / den at the end.  Sums run in another order than the plain form's
-// (horizontal first), and exp2f with one scale replaces expf of a quotient;
-// both stay within 5e-5 of it (tests/test_torch_windowed.py emulates this
-// arithmetic on the CPU).
+// s only), two phases, each ended by a barrier:
+//   A. an item is 16 adjacent columns (8 at C = 1) of one row of the box's
+//      reach, in one channel: 6 (32 + 2b) items at C = 3, so that nearly
+//      every warp has one.  Thread t takes item t (at C = 3 and b >= 6 the
+//      first threads also take item t + 256).  It forms the 16 + 2b
+//      differences D from the staged image in registers and writes the 16
+//      horizontal sums of 2b+1 of them to shared memory; the staged words
+//      of its D centres are set once, before the offset loop.
+//   B. every thread owns 4 rows of one output column: it forms the 4
+//      vertical sums of 2b+1 horizontal sums, turns each into
+//      w = exp2(S * scale), with 1 / (2b+1)^2, 1 / h^2 and log2(e) folded
+//      into one factor per image, and adds it into num and den in registers.
+// Every box is a sum of its own 2b+1 terms, never a running sum: D reaches
+// 255^2, and a sliding window's subtraction would leave an absolute error
+// near ulp(sum) where the sum should be near 0.  window_sums forms a run's
+// windows from one pivot's prefix and suffix sums instead, 2b + 2G adds for G
+// windows where direct sums take 2b G.  Row pitches are padded to 1 mod 8
+// words, so the shared accesses of both phases are free of bank conflicts
+// inside the frame.  The only division per value is num / den at the end.
+// Sums run in another order than the plain form's (horizontal first, by
+// pivot), and exp2 with one scale replaces expf of a quotient; both stay
+// within 5e-5 of it (tests/test_torch_windowed.py emulates this arithmetic
+// on the CPU).  One buffer of horizontal sums and two barriers per offset:
+// a double-buffered form, phase A of offset i+1 beside phase B of offset i
+// behind one barrier, measured slower on the H100 (PERF.md, PR 4).
 //
 // Bound on the H100.  Per pixel and channel and per offset the function
 // needs the difference and its square, the separable box and one exp with
@@ -57,10 +60,13 @@
 // ring; and the partner p + o belongs to another thread, often another
 // block, so its weight would need shared num and den accumulators or the
 // weights recomputed over an s-wide halo, which at tiles that fit in shared
-// memory eats much of the saving.  Per value and offset the kernel issues
-// about 10 shared-memory words and 30 FP32 operations, so the shared-memory
-// port and the issue rate bound it, not the exps.  PERF.md gives its time,
-// registers, shared memory and blocks per SM, measured on the card.
+// memory eats much of the saving.  At b = 4 and C = 3 the kernel moves about
+// 9 shared-memory words and issues about 14 FP32 operations and one exp per
+// value and offset, with the address arithmetic beside them: the issue rate
+// and the shared-memory port bound it, not the exps.  ptxas: 124 registers
+// at C = 3 (96 at C = 1), no spills; 62,616 bytes of shared memory a block
+// at C = 3; so the registers allow 2 blocks (16 warps) per SM.  PERF.md
+// gives its times on the card.
 
 #include <cuda_runtime.h>
 
@@ -69,17 +75,23 @@ namespace {
 constexpr int kMaxR = 7;                          // largest b and largest s
 constexpr int kHalo = 2 * kMaxR;                  // reach of b + s
 constexpr int kTile = 32;                         // output tile, kTile^2 pixels
-constexpr int kRun = 8;                           // phase A: columns per item
-constexpr int kRuns = kTile / kRun;               // phase A: items per row
 constexpr int kRows = 4;                          // phase B: rows per thread
 constexpr int kThreads = kTile * kTile / kRows;   // 256
 constexpr int kStaged = kTile + 2 * kHalo;        // 60 staged rows and columns
 constexpr int kReach = kTile + 2 * kMaxR;         // 46 positions a box reaches
-static_assert(kReach * kRuns <= kThreads, "one phase-A item per thread");
 constexpr float kLog2e = 1.4426950408889634f;
 
-// a row pitch of at least `words`, 1 mod 8: eight consecutive rows then
-// fall in distinct banks modulo 8, and kRun * C columns apart fill the rest
+// Phase A's item: kRun<C>() adjacent columns of one row of the box's reach,
+// in one channel.  Its items are numbered channel by channel, then row by
+// row: the kTile / kRun<C>() runs of a row are adjacent.
+template <int C> __host__ __device__ constexpr int kRun() { return C == 1 ? 8 : 16; }
+template <int B, int C> __host__ __device__ constexpr int kItems() {
+  return C * (kTile + 2 * B) * (kTile / kRun<C>());
+}
+
+// a row pitch of at least `words`, 1 mod 8: the rows of a warp's items then
+// fall in distinct banks modulo 8 (odd modulo 16), and its runs, kRun<C>() * C
+// words apart, fill the rest
 __host__ __device__ constexpr int pitch(int words) { return words + (9 - words % 8) % 8; }
 template <int C> __host__ __device__ constexpr int stage_pitch() { return pitch(kStaged * C); }
 template <int C> __host__ __device__ constexpr int sums_pitch() { return pitch(kTile * C); }
@@ -87,7 +99,7 @@ template <int C> __host__ __device__ constexpr int sums_words() { return kReach 
 
 template <int C>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kStaged * stage_pitch<C>() + 2 * sums_words<C>()) +
+  return sizeof(float) * (kStaged * stage_pitch<C>() + sums_words<C>()) +
          sizeof(int) * 2 * kReach;
 }
 
@@ -154,25 +166,39 @@ __device__ __forceinline__ void window_sums(V v, float (&out)[N]) {
   }
 }
 
-// Phase A: the horizontal box sums of one item (kRun columns of one row of
-// the box's reach) for offset word `toff`, into dst (the item's first word);
-// ctr[j] is the staged word of D column j's centre.
-template <int B, int C>
-__device__ __forceinline__ void row_sums(const float* __restrict__ stage,
-                                         const int (&ctr)[kRun + 2 * B],
+// Phase A: the N horizontal box sums of one item for offset word `toff`,
+// into dst[m * C]; centre(j) is the staged word of D column j's centre.
+template <int N, int B, int C, typename Centre>
+__device__ __forceinline__ void row_sums(const float* __restrict__ stage, Centre centre,
                                          int toff, float* __restrict__ dst) {
+  float sum[N];
+  window_sums<N, B>(
+      [&](int j) {
+        const int at = centre(j);
+        const float t = stage[at + toff] - stage[at];
+        return t * t;
+      },
+      sum);
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float sum[kRun];
-    window_sums<kRun, B>(
-        [&](int j) {
-          const float t = stage[ctr[j] + toff + c] - stage[ctr[j] + c];
-          return t * t;
-        },
-        sum);
-#pragma unroll
-    for (int m = 0; m < kRun; ++m) dst[m * C + c] = sum[m];
-  }
+  for (int m = 0; m < N; ++m) dst[m * C] = sum[m];
+}
+
+// Where phase A's item `it` reads and writes: the staged word of its row
+// and channel, its first column's entry in the column table, and its first
+// word in a buffer of horizontal sums.
+struct Item {
+  int row;
+  const int* cols;
+  int dst;
+};
+
+template <int B, int C>
+__device__ __forceinline__ Item phase_a_item(int it, const int* __restrict__ srow,
+                                             const int* __restrict__ scol) {
+  constexpr int W = kRun<C>(), runs = kTile / W, per_channel = (kTile + 2 * B) * runs;
+  const int c = it / per_channel, row = it % per_channel / runs, run = it % runs;
+  return {srow[row + kMaxR - B] * stage_pitch<C>() + c, scol + run * W + kMaxR - B,
+          row * sums_pitch<C>() + run * W * C + c};
 }
 
 // Phase B: the vertical box sums of one thread's kRows pixels from the
@@ -207,16 +233,18 @@ __device__ __forceinline__ void nlm_tile(const float* __restrict__ stage,
   constexpr int SP = stage_pitch<C>(), HP = sums_pitch<C>();
   const int tid = threadIdx.x;
 
-  // phase A's item: row ar of the box's reach (position oy0 - B + ar), the
-  // columns from ox0 + aq * kRun - B; the staged word of each D centre
-  const int ar = tid / kRuns, aq = tid % kRuns;
-  const bool a_on = ar < kTile + 2 * B;
-  const int a_dst = ar * HP + aq * kRun * C;
-  int ctr[kRun + 2 * B];
-  const int crow = a_on ? srow[ar + kMaxR - B] * SP : 0;
+  // phase A: item tid, its D centres' staged words held in registers; where
+  // the items outnumber the threads (C = 3, B >= 6), the first few threads
+  // also take item tid + kThreads, reading its columns from the table
+  constexpr int W = kRun<C>(), items = kItems<B, C>();
+  static_assert(items <= 2 * kThreads, "at most two phase-A items per thread");
+  const bool a_on = tid < items;
+  const Item a = phase_a_item<B, C>(a_on ? tid : 0, srow, scol);
+  int a_ctr[W + 2 * B];
 #pragma unroll
-  for (int j = 0; j < kRun + 2 * B; ++j)
-    ctr[j] = crow + (a_on ? scol[aq * kRun + j + kMaxR - B] * C : 0);
+  for (int j = 0; j < W + 2 * B; ++j) a_ctr[j] = a.row + a.cols[j] * C;
+  const bool a2_on = tid + kThreads < items;
+  const Item a2 = phase_a_item<B, C>(a2_on ? tid + kThreads : 0, srow, scol);
 
   // phase B's pixels: rows by .. by + kRows - 1 of column bx of the tile
   const int bx = tid % kTile, by = tid / kTile * kRows;
@@ -232,19 +260,16 @@ __device__ __forceinline__ void nlm_tile(const float* __restrict__ stage,
     }
   }
 
-  // step i runs phase A of offset i into buffer i % 2 and phase B of offset
-  // i - 1 from the other buffer; one barrier per step
   const int side = 2 * s + 1, count = side * side;
-  for (int i = 0; i <= count; ++i) {
-    if (i < count && a_on) {
-      const int dx = i / side - s, dy = i % side - s;
-      row_sums<B, C>(stage, ctr, dy * SP + dx * C, sums + (i & 1) * sums_words<C>() + a_dst);
-    }
-    if (i > 0) {
-      const int dx = (i - 1) / side - s, dy = (i - 1) % side - s;
-      accumulate<B, C>(b_sums + ((i - 1) & 1) * sums_words<C>(), b_tap + dy * SP + dx * C,
-                       neg_scale, num, den);
-    }
+  for (int i = 0; i < count; ++i) {
+    const int dx = i / side - s, dy = i % side - s;
+    const int toff = dy * SP + dx * C;
+    if (a_on) row_sums<W, B, C>(stage, [&](int j) { return a_ctr[j]; }, toff, sums + a.dst);
+    if (a2_on)
+      row_sums<W, B, C>(stage, [&](int j) { return a2.row + a2.cols[j] * C; }, toff,
+                        sums + a2.dst);
+    __syncthreads();
+    accumulate<B, C>(b_sums, b_tap + toff, neg_scale, num, den);
     __syncthreads();
   }
 
@@ -268,8 +293,8 @@ fastnlm_kernel(const float* __restrict__ x, const float* __restrict__ params,
   extern __shared__ float smem[];
   constexpr int SP = stage_pitch<C>();
   float* stage = smem;                                  // [kStaged][SP]: x~
-  float* sums = stage + kStaged * SP;                   // 2 x [kReach][HP]
-  int* srow = reinterpret_cast<int*>(sums + 2 * sums_words<C>());  // [kReach]
+  float* sums = stage + kStaged * SP;                   // [kReach][HP]
+  int* srow = reinterpret_cast<int*>(sums + sums_words<C>());  // [kReach]
   int* scol = srow + kReach;                                         // [kReach]
 
   const int n = blockIdx.z, tid = threadIdx.x;

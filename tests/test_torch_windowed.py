@@ -137,14 +137,16 @@ def _window_sums(v, n, b, dim):
 
 def _box_sums_kernel_order(d, b):
     """The (2b+1)^2 box sum of NCHW d with reflect padding of d itself, as the
-    kernel forms it: horizontal sums for runs of 8 columns, then vertical
-    sums for runs of 4 rows, each run's windows by _window_sums."""
+    kernel forms it: horizontal sums for runs of 16 columns (8 for one
+    channel), then vertical sums for runs of 4 rows, each run's windows by
+    _window_sums."""
     h, w = d.shape[2:]
+    run = 8 if d.shape[1] == 1 else 16
     fn = torch.nn.functional
     cols = fn.pad(d, (b, b, 0, 0), mode="reflect")
-    cols = fn.pad(cols, (0, -w % 8))
-    rows = torch.cat([_window_sums(cols[..., x0:x0 + 8 + 2 * b], 8, b, 3)
-                      for x0 in range(0, w, 8)], 3)[..., :w]
+    cols = fn.pad(cols, (0, -w % run))
+    rows = torch.cat([_window_sums(cols[..., x0:x0 + run + 2 * b], run, b, 3)
+                      for x0 in range(0, w, run)], 3)[..., :w]
     rows = fn.pad(rows, (0, 0, b, b), mode="reflect")
     rows = fn.pad(rows, (0, 0, 0, -h % 4))
     return torch.cat([_window_sums(rows[:, :, y0:y0 + 4 + 2 * b], 4, b, 2)
@@ -183,9 +185,9 @@ def _nlm_kernel_arithmetic(x, params):
 def test_window_sums_are_the_direct_sums():
     """The pivot order gives every window's own 2b+1 terms: against a direct
     sum in float64, for each radius and a run length that no group fills."""
-    v = torch.from_numpy(np.random.default_rng(50).uniform(0, 65025, (3, 22)))
+    v = torch.from_numpy(np.random.default_rng(50).uniform(0, 65025, (3, 30)))
     for b in range(1, 8):
-        for n in (4, 8):
+        for n in (4, 8, 16):
             got = _window_sums(v[:, :n + 2 * b], n, b, 1)
             want = torch.stack([v[:, m:m + 2 * b + 1].sum(1)
                                 for m in range(n)], 1)
