@@ -60,7 +60,7 @@ BF16_TOL = 5e-2        # whole path, bf16 vs f32 CNN storage: 8-bit mantissa
 # name -> (module, plain form, params per image, tolerance against the plain
 # form, TPU kernel it replaces).  Tolerances: bilateral uses expf on both
 # sides with sums reordered; fast NLM sums its boxes in another order and
-# takes exp2f of the box sum times one folded scale; the median selects one
+# takes exp2 of the box sum times one folded scale; the median selects one
 # of the input values, so it is exact.
 KERNELS = {
     "bilateral": (kb, kb.bilateral_plain, 3, 2e-5,

@@ -117,50 +117,30 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// out[m] = v(m) + ... + v(m + 2B) for m < N: every window is a sum of its own
+// out[m] = v[m] + ... + v[m + 2B] for m < N: every window is a sum of its own
 // 2B+1 terms, never a running sum with a subtraction.  The windows go in
 // groups of up to 2B+1 that all hold one pivot p (the group's last window
-// starts there): a suffix sum of v(m .. p-1) and a prefix sum of v(p ..
-// m+2B) make each, in 2B + 2G adds for a group of G windows, not 2B G.
+// starts there): a suffix sum of v[m .. p-1] and a prefix sum of v[p ..
+// m+2B] make each, in 2B + 2G adds for a group of G windows, not 2B G.
 // All terms are D values, never negative, so the order leaves the error
-// relative to the window's own sum.  Where one group holds all N windows,
-// each term is formed just before it is added (right to left from p - 1,
-// then left to right from p), so few stay live; else they are formed once
-// into registers first.
-template <int N, int B, typename V>
-__device__ __forceinline__ void window_sums(V v, float (&out)[N]) {
+// relative to the window's own sum.
+template <int N, int B>
+__device__ __forceinline__ void window_sums(const float (&v)[N + 2 * B], float (&out)[N]) {
   constexpr int L = 2 * B + 1;
-  if constexpr (N > L) {
-    float t[N + 2 * B];
 #pragma unroll
-    for (int j = 0; j < N + 2 * B; ++j) t[j] = v(j);
+  for (int g = 0; g < N; g += L) {
+    const int p = (g + L < N ? g + L : N) - 1;
 #pragma unroll
-    for (int g = 0; g < N; g += L) {
-      const int p = (g + L < N ? g + L : N) - 1;
-#pragma unroll
-      for (int i = 1; i < L; ++i) {   // suffix sums, right to left
-        const int m = p - i;
-        if (m >= g) out[m] = (i == 1) ? t[m] : t[m] + out[m + 1];
-      }
-      float pre = t[p];
-#pragma unroll
-      for (int i = 0; i < L; ++i) {   // prefix sums; window m ends at p + i
-        if (i > 0) pre += t[p + i];
-        const int m = p + i - (L - 1);
-        if (m >= g && m < p) out[m] += pre;
-      }
-      out[p] = pre;
+    for (int i = 1; i < L; ++i) {   // suffix sums, right to left
+      const int m = p - i;
+      if (m >= g) out[m] = (i == 1) ? v[m] : v[m] + out[m + 1];
     }
-  } else {
-    constexpr int p = N - 1;
+    float pre = v[p];
 #pragma unroll
-    for (int m = p - 1; m >= 0; --m) out[m] = (m == p - 1) ? v(m) : v(m) + out[m + 1];
-    float pre = v(p);
-#pragma unroll
-    for (int i = 1; i < L; ++i) {
-      pre += v(p + i);
+    for (int i = 0; i < L; ++i) {   // prefix sums; window m ends at p + i
+      if (i > 0) pre += v[p + i];
       const int m = p + i - (L - 1);
-      if (m >= 0 && m < p) out[m] += pre;
+      if (m >= g && m < p) out[m] += pre;
     }
     out[p] = pre;
   }
@@ -171,21 +151,21 @@ __device__ __forceinline__ void window_sums(V v, float (&out)[N]) {
 template <int N, int B, int C, typename Centre>
 __device__ __forceinline__ void row_sums(const float* __restrict__ stage, Centre centre,
                                          int toff, float* __restrict__ dst) {
-  float sum[N];
-  window_sums<N, B>(
-      [&](int j) {
-        const int at = centre(j);
-        const float t = stage[at + toff] - stage[at];
-        return t * t;
-      },
-      sum);
+  float d[N + 2 * B], sum[N];
+#pragma unroll
+  for (int j = 0; j < N + 2 * B; ++j) {
+    const int at = centre(j);
+    const float t = stage[at + toff] - stage[at];
+    d[j] = t * t;
+  }
+  window_sums<N, B>(d, sum);
 #pragma unroll
   for (int m = 0; m < N; ++m) dst[m * C] = sum[m];
 }
 
 // Where phase A's item `it` reads and writes: the staged word of its row
 // and channel, its first column's entry in the column table, and its first
-// word in a buffer of horizontal sums.
+// word in the horizontal sums.
 struct Item {
   int row;
   const int* cols;
@@ -211,8 +191,10 @@ __device__ __forceinline__ void accumulate(const float* __restrict__ sums,
   constexpr int HP = sums_pitch<C>(), SP = stage_pitch<C>();
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    float box[kRows];
-    window_sums<kRows, B>([&](int m) { return sums[m * HP + c]; }, box);
+    float hs[kRows + 2 * B], box[kRows];
+#pragma unroll
+    for (int m = 0; m < kRows + 2 * B; ++m) hs[m] = sums[m * HP + c];
+    window_sums<kRows, B>(hs, box);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const float wgt = exp2_ftz(box[r] * neg_scale);

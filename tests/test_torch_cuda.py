@@ -104,7 +104,7 @@ def _nlm_rows(block, n):
                                    (1, 520, 776, 3)])
 @pytest.mark.parametrize("block", range(1, 8))
 def test_fastnlm_kernel_matches_plain(cuda, shape, block):
-    """Sums in another order, one folded scale and exp2f against the plain
+    """Sums in another order, one folded scale and exp2 against the plain
     form's expf of a quotient: 5e-5."""
     x, p = _case(shape, _nlm_rows(block, shape[0]), cuda)
     before = kf.launches
