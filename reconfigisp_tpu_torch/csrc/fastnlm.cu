@@ -47,7 +47,7 @@
 // within 5e-5 of it (tests/test_torch_windowed.py emulates this arithmetic
 // on the CPU).  One buffer of horizontal sums and two barriers per offset:
 // a double-buffered form, phase A of offset i+1 beside phase B of offset i
-// behind one barrier, measured slower on the H100 (PERF.md, PR 4).
+// behind one barrier, measured slower on the H100 (PERF.md).
 //
 // Bound on the H100.  Per pixel and channel and per offset the function
 // needs the difference and its square, the separable box and one exp with
@@ -64,7 +64,7 @@
 // 9 shared-memory words and issues about 14 FP32 operations and one exp per
 // value and offset, with the address arithmetic beside them: the issue rate
 // and the shared-memory port bound it, not the exps.  ptxas: 124 registers
-// at C = 3 (96 at C = 1), no spills; 62,616 bytes of shared memory a block
+// at C = 3 (94 at C = 1), no spills; 62,616 bytes of shared memory a block
 // at C = 3; so the registers allow 2 blocks (16 warps) per SM.  PERF.md
 // gives its times on the card.
 
