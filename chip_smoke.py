@@ -5,10 +5,15 @@
 
 Phases, one line each:
   1. environment: versions, device, nvidia-smi's name and power limit;
-  2. build every CUDA kernel of csrc/ with nvcc (sm_90a), all at once;
+  2. build every CUDA kernel of csrc/ with nvcc (sm_90a), all at once, and
+     beside them one kernel per radius and C of csrc/median.cu: ptxas's
+     registers and spills of each median body and, where cuobjdump is
+     present, its count of integer min/max instructions beside the pruned
+     network's;
   3. each kernel against its plain PyTorch form on the card: bilateral and
      median at radii 1-7, fast NLM at block radii 1-7 with per-image search
-     radii 1-7; C = 3 and C = 1, and a ragged 520x776 frame;
+     radii 1-7; C = 3 and C = 1, and a ragged 520x776 frame; the median also
+     on saturated input (runs of exact 0 and 1) at radii 4 and 7;
   4. the two serving paths end to end on two 2848x4256 frames (patch 512,
      stride 480, chunk 8): the SID path with bilateral,
      Bayer_01_Demosaic_03_sRGB_07_01_13_11, and with median then fast NLM,
@@ -18,8 +23,9 @@ Phases, one line each:
   5. the zoo: every op of the three pools, native and (where it has one)
      proxy, with the bank's weights, on a small input on the card against
      the same pipeline on the CPU;
-  6. times with CUDA events: each path at f32 and bf16 CNN storage, and each
-     kernel at (8, 512, 512, 3) with every radius 4, beside its bound.
+  6. times with CUDA events: each path at f32 and bf16 CNN storage, the
+     median kernel at (8, 512, 512, 3) and every radius 1-7, and each kernel
+     there with every radius 4, beside its bound.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 tools/profile_torch_serving.py imports the serving set-up from here.
@@ -30,6 +36,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -70,6 +78,12 @@ KERNELS = {
     "fastnlm": (kf, kf.fastnlm_plain, 3, 5e-5,
                 "reconfigisp_tpu/ops/pallas_kernels.py:324"),
 }
+
+# Integer min/max instructions of csrc/median.cu's pruned selection networks
+# for one 2x2 block of pixels and one channel, by radius (its source note;
+# tests/test_torch_windowed.py counts them in its mirror of the networks).
+# Larger radii bisect.
+MEDIAN_NETWORK_MINMAX = {1: 114, 2: 412, 3: 952, 4: 1724}
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds: device memory
 # 3.35 TB/s; FP32 67 TFLOP/s; exp on the special-function units: 16 per clock
@@ -222,26 +236,125 @@ def phase_environment(dev) -> None:
     print(f"nvidia-smi: {smi}", flush=True)
 
 
+def _start_median_bodies():
+    """nvcc for csrc/median.cu with one kernel per C and radius
+    (MEDIAN_BODY_KERNELS), into a cubin beside the libraries."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = _build.BUILD_DIR / "median-bodies.cubin"
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [_build.nvcc(), *flags, "-cubin", "-DMEDIAN_BODY_KERNELS", "-o",
+           str(cubin), str(_build.CSRC / "median.cu")]
+    return cubin, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+
+
+def _body_key(symbol: str):
+    """(C, radius) of a mangled median_kernel<C, R> name, or None."""
+    m = re.search(r"median_kernelILi(\d)ELi(\d)EE", symbol)
+    return (int(m[1]), int(m[2])) if m and m[2] != "0" else None
+
+
+def _median_bodies(cubin: Path, proc) -> None:
+    """One line per median body: ptxas's registers and spills, and the
+    integer min/max instructions in its SASS (two-input IMNMX or VIMNMX, and
+    the three-input VIMNMX3 that ptxas fuses from a min of a min).  A network
+    body's two-input equivalents, less those of the same C's radius-7
+    bisection body (the staging's reflections), are its network's: the
+    pruned count, or a few more.  Raises on a failed build, a spill, or a
+    network left unpruned."""
+    output, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"median bodies: nvcc exited {proc.returncode}\n"
+                           f"{output}")
+    ptxas, current = {}, None
+    for ln in output.splitlines():
+        m = re.search(r"entry function '([^']+)'|Function properties for (\S+)",
+                      ln)
+        if m:
+            current = _body_key(m[1] or m[2])
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if spill:
+            ptxas.setdefault(current, {})["spill_bytes"] = (
+                int(spill[1]) + int(spill[2]))
+        regs = re.search(r"Used (\d+) registers", ln)
+        if regs:
+            ptxas.setdefault(current, {})["registers"] = int(regs[1])
+    minmax = {}
+    cuobjdump = shutil.which("cuobjdump") or str(
+        Path(_build.nvcc()).with_name("cuobjdump"))
+    if Path(cuobjdump).is_file():
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        current = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                current = _body_key(m[1])
+                if current is not None:
+                    minmax[current] = [0, 0]
+                continue
+            op = re.search(r"\bV?IMNMX(3?)[.\s]", ln)
+            if current is not None and op:
+                minmax[current][len(op[1])] += 1
+    if sorted(ptxas) != [(c, r) for c in (1, 3) for r in range(1, 8)]:
+        raise RuntimeError(f"median bodies: ptxas reported {sorted(ptxas)}")
+    unpruned = []
+    for (c, r), info in sorted(ptxas.items()):
+        sass = "no cuobjdump"
+        if (c, r) in minmax:
+            two, three = minmax[c, r]
+            sass = f"{two}+{three}x3"
+            if r in MEDIAN_NETWORK_MINMAX:
+                network = two + 2 * three - minmax[c, 7][0]
+                sass += f" network={network}"
+                if network > MEDIAN_NETWORK_MINMAX[r] + 8:
+                    unpruned.append((c, r))
+        line("phase 2 median body", c=c, radius=r,
+             selection="network" if r in MEDIAN_NETWORK_MINMAX else "bisection",
+             registers=info.get("registers"), spill_bytes=info["spill_bytes"],
+             sass_int_minmax=repr(sass),
+             pruned_network_minmax=MEDIAN_NETWORK_MINMAX.get(r))
+    spilled = [key for key, info in sorted(ptxas.items()) if info["spill_bytes"]]
+    if spilled or unpruned:
+        raise RuntimeError(f"median bodies (C, radius): {spilled} spill, "
+                           f"{unpruned} keep dead comparators")
+
+
 def phase_build() -> None:
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     missing = set(KERNELS) - set(sources)
     if missing:
         raise FileNotFoundError(f"no source for kernels {sorted(missing)}")
-    report = _build.build(sources)
-    for name in sources:
-        if name in report:
-            secs, output = report[name]
-            ptxas = [ln.strip() for ln in output.splitlines()
-                     if "registers" in ln or "spill" in ln]
-            line("phase 2 build", kernel=name, seconds=f"{secs:.2f}",
-                 ptxas=repr(" | ".join(ptxas)))
-        else:
-            line("phase 2 build", kernel=name, seconds=0, cached=True)
-        _build.load(name)
+    cubin, proc = _start_median_bodies()
+    try:
+        report = _build.build(sources)
+        for name in sources:
+            if name in report:
+                secs, output = report[name]
+                ptxas = [ln.strip() for ln in output.splitlines()
+                         if "registers" in ln or "spill" in ln]
+                line("phase 2 build", kernel=name, seconds=f"{secs:.2f}",
+                     ptxas=repr(" | ".join(ptxas)))
+                if re.search(r"[1-9]\d* bytes spill", output):
+                    raise RuntimeError(f"{name}: ptxas reports spills")
+            else:
+                line("phase 2 build", kernel=name, seconds=0, cached=True)
+            _build.load(name)
+        _median_bodies(cubin, proc)
+    finally:
+        proc.kill()  # nothing once it has ended
+        proc.wait()
 
 
 def _kernel_cases():
-    """(kernel, case, shape, params rows...) of phase 3."""
+    """(kernel, case, shape, params rows, block radius) of phase 3.  Inputs
+    are uniform in [0, 1]; those of a "saturated" case are clamped from
+    2 u - 0.5, so a quarter of the values are exactly 0 and a quarter 1."""
     r17 = list(range(1, 8))
     yield "bilateral", "tiles_8x512x512x3_r1-7", (8, 512, 512, 3), r17 + [4], 4
     yield "bilateral", "tiles_8x512x512x1_r1-7", (8, 512, 512, 1), r17 + [4], 4
@@ -250,6 +363,11 @@ def _kernel_cases():
         yield "median", f"tiles_4x512x512x3_r{r}", (4, 512, 512, 3), [r] * 4, 4
         yield "median", f"tiles_4x256x256x1_r{r}", (4, 256, 256, 1), [r] * 4, 4
     yield "median", "frame_2x520x776x3_r7", (2, 520, 776, 3), [7, 7], 4
+    for r in (4, 7):
+        yield ("median", f"saturated_tiles_4x512x512x3_r{r}", (4, 512, 512, 3),
+               [r] * 4, 4)
+        yield ("median", f"saturated_frame_2x520x776x3_r{r}", (2, 520, 776, 3),
+               [r] * 2, 4)
     for b in r17:
         yield "fastnlm", f"tiles_7x512x512x3_b{b}_s1-7", (7, 512, 512, 3), r17, b
         yield "fastnlm", f"tiles_7x256x256x1_b{b}_s1-7", (7, 256, 256, 1), r17, b
@@ -263,6 +381,8 @@ def phase_kernels(dev) -> dict:
     for name, case, shape, radii, block in _kernel_cases():
         mod, plain, _, tol, _ = KERNELS[name]
         x = torch.rand(shape, generator=gen, device=dev)
+        if case.startswith("saturated"):
+            x = torch.clamp(2.0 * x - 0.5, 0.0, 1.0)
         p = kernel_params(name, radii, dev, block)
         got = getattr(mod, name)(x, p)
         want = plain(x, p)
@@ -386,6 +506,13 @@ def phase_times(dev, pipes, frames) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.rand((8, PATCH, PATCH, 3), generator=gen, device=dev)
+    for r in range(1, 8):
+        p = kernel_params("median", [r] * 8, dev)
+        ms = event_ms(lambda: km.median(x, p), reps=20)
+        bound, bound_by = median_bound(x, p)
+        line("phase 6 median time by radius", shape=tuple(x.shape), radius=r,
+             selection="network" if r in MEDIAN_NETWORK_MINMAX else "bisection",
+             ms=f"{ms:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by)
     times = {}
     for name, (mod, plain, *_) in KERNELS.items():
         p = kernel_params(name, [4] * 8, dev)

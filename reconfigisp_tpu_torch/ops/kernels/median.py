@@ -6,8 +6,11 @@ for a CUDA tensor and counts the launch in `launches`; for a tensor on the
 CPU it computes `median_plain`, the form of
 reconfigisp_tpu/ops/denoise.py:_median_jnp, which is also the kernel's
 reference on the card.  Both select the exact middle tap, so they agree bit
-for bit.  The kernel has no backward yet, so on CUDA it refuses inputs that
-require grad.
+for bit: the kernel by pruned selection networks in registers, shared by
+each 2x2 block of pixels, at radii up to 4, and by a bisection on the
+float's order-preserving key above (tests/test_torch_windowed.py emulates
+both on the CPU).  The kernel has no backward yet, so on CUDA it refuses
+inputs that require grad.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 1) in [0, 1]: [size01].  The
 radius clip(floor(7 size01), 0, 6) + 1 comes from params[0, 0] for the whole

@@ -79,12 +79,20 @@ def test_op_refuses_grad_on_cuda(cuda):
 
 # ------------------------------------------------------------------ median
 
+@pytest.mark.parametrize("kind", ["uniform", "saturated", "constant"])
 @pytest.mark.parametrize("shape", [(3, 64, 96, 3), (3, 40, 72, 1),
-                                   (1, 520, 776, 3)])
+                                   (1, 520, 776, 3), (2, 41, 73, 1)])
 @pytest.mark.parametrize("radius", range(1, 8))
-def test_median_kernel_equals_plain(cuda, shape, radius):
-    """Both select the exact middle tap: bit-identical."""
+def test_median_kernel_equals_plain(cuda, shape, radius, kind):
+    """Both select the exact middle tap: bit-identical.  Saturated input,
+    clamped from 2 u - 0.5, has runs of exact 0.0 and 1.0 (as Malvar's
+    clamp leaves them); a constant frame is all ties.  At odd H and W the
+    kernel's 2x2 blocks of pixels overhang the frame."""
     x, p = _case(shape, [[(radius - 0.5) / 7.0]] * shape[0], cuda)
+    if kind == "saturated":
+        x = torch.clamp(2.0 * x - 0.5, 0.0, 1.0)
+    elif kind == "constant":
+        x = torch.full_like(x, 0.37)
     before = km.launches
     got = km.median(x, p)
     torch.cuda.synchronize()
