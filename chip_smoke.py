@@ -6,14 +6,16 @@
 Phases, one line each:
   1. environment: versions, device, nvidia-smi's name and power limit;
   2. build every CUDA kernel of csrc/ with nvcc (sm_90a), all at once, and
-     beside them one kernel per radius and C of csrc/median.cu: ptxas's
-     registers and spills of each median body and, where cuobjdump is
-     present, its count of integer min/max instructions beside the pruned
-     network's;
+     beside them one kernel per radius and C of csrc/median.cu and of
+     csrc/bilateral.cu: ptxas's registers and spills of each body and, where
+     cuobjdump is present, its count of integer min/max instructions beside
+     the pruned network's (median) and of MUFU.EX2 beside the design's
+     (bilateral);
   3. each kernel against its plain PyTorch form on the card: bilateral and
      median at radii 1-7, fast NLM at block radii 1-7 with per-image search
-     radii 1-7; C = 3 and C = 1, and a ragged 520x776 frame; the median also
-     on saturated input (runs of exact 0 and 1) at radii 4 and 7;
+     radii 1-7; C = 3 and C = 1, and a ragged 520x776 frame; the median and
+     the bilateral also on saturated input (runs of exact 0 and 1), the
+     bilateral on constant input and at both sigma extremes;
   4. the two serving paths end to end on two 2848x4256 frames (patch 512,
      stride 480, chunk 8): the SID path with bilateral,
      Bayer_01_Demosaic_03_sRGB_07_01_13_11, and with median then fast NLM,
@@ -24,8 +26,8 @@ Phases, one line each:
      proxy, with the bank's weights, on a small input on the card against
      the same pipeline on the CPU;
   6. times with CUDA events: each path at f32 and bf16 CNN storage, the
-     median kernel at (8, 512, 512, 3) and every radius 1-7, and each kernel
-     there with every radius 4, beside its bound.
+     median and bilateral kernels at (8, 512, 512, 3) and every radius 1-7,
+     and each kernel there with every radius 4, beside its bound.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 tools/profile_torch_serving.py imports the serving set-up from here.
@@ -66,10 +68,11 @@ BF16_TOL = 5e-2        # whole path, bf16 vs f32 CNN storage: 8-bit mantissa
                        # through 14 conv layers
 
 # name -> (module, plain form, params per image, tolerance against the plain
-# form, TPU kernel it replaces).  Tolerances: bilateral uses expf on both
-# sides with sums reordered; fast NLM sums its boxes in another order and
-# takes exp2 of the box sum times one folded scale; the median selects one
-# of the input values, so it is exact.
+# form, TPU kernel it replaces).  Tolerances: bilateral takes one exp2 per
+# tap of values staged times sqrt(kc) where the plain form multiplies two
+# expf; fast NLM sums its boxes in another order and takes exp2 of the box
+# sum times one folded scale; the median selects one of the input values,
+# so it is exact.
 KERNELS = {
     "bilateral": (kb, kb.bilateral_plain, 3, 2e-5,
                   "reconfigisp_tpu/ops/pallas_kernels.py:113"),
@@ -84,6 +87,12 @@ KERNELS = {
 # tests/test_torch_windowed.py counts them in its mirror of the networks).
 # Larger radii bisect.
 MEDIAN_NETWORK_MINMAX = {1: 114, 2: 412, 3: 952, 4: 1724}
+
+# csrc/bilateral.cu: output rows a thread owns.  A body's SASS holds one
+# column offset's taps, BILATERAL_ROWS (2R+1) C MUFU.EX2 (its loop over the
+# 2R+1 column offsets is not unrolled), so a thread issues (2R+1)^2 C of
+# them per output row: one exp per tap.
+BILATERAL_ROWS = 8
 
 # Published H100 SXM peaks (NVIDIA data sheet), for the bounds: device memory
 # 3.35 TB/s; FP32 67 TFLOP/s; exp on the special-function units: 16 per clock
@@ -117,12 +126,15 @@ def size01(radius: int) -> float:
     return (radius - 0.5) / 7.0
 
 
-def kernel_params(name: str, radii, dev, block: int = 4) -> torch.Tensor:
+def kernel_params(name: str, radii, dev, block: int = 4,
+                  sigma=None) -> torch.Tensor:
     """(N, P) params for one kernel, one row per image.  bilateral: the
-    given radii, a distinct sigma pair each; median: the radius of row 0
-    serves the batch; fastnlm: block radius `block` (from row 0), the given
-    search radii, a distinct decay each."""
-    if name == "bilateral":
+    given radii, a distinct sigma pair each, or both sigma01 = `sigma`;
+    median: the radius of row 0 serves the batch; fastnlm: block radius
+    `block` (from row 0), the given search radii, a distinct decay each."""
+    if name == "bilateral" and sigma is not None:
+        rows = [[size01(r), sigma, sigma] for r in radii]
+    elif name == "bilateral":
         rows = [[size01(r), 0.05 + 0.09 * i, 0.1 + 0.08 * i]
                 for i, r in enumerate(radii)]
     elif name == "median":
@@ -236,43 +248,45 @@ def phase_environment(dev) -> None:
     print(f"nvidia-smi: {smi}", flush=True)
 
 
-def _start_median_bodies():
-    """nvcc for csrc/median.cu with one kernel per C and radius
-    (MEDIAN_BODY_KERNELS), into a cubin beside the libraries."""
+# csrc/<name>.cu built with -D<macro> holds one kernel per C and radius
+BODY_MACROS = {"median": "MEDIAN_BODY_KERNELS",
+               "bilateral": "BILATERAL_BODY_KERNELS"}
+
+
+def _start_bodies(name: str):
+    """nvcc for csrc/<name>.cu with one kernel per C and radius, into a
+    cubin beside the libraries."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cubin = _build.BUILD_DIR / "median-bodies.cubin"
+    cubin = _build.BUILD_DIR / f"{name}-bodies.cubin"
     flags = [f for f in _build.NVCC_FLAGS
              if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    cmd = [_build.nvcc(), *flags, "-cubin", "-DMEDIAN_BODY_KERNELS", "-o",
-           str(cubin), str(_build.CSRC / "median.cu")]
+    cmd = [_build.nvcc(), *flags, "-cubin", f"-D{BODY_MACROS[name]}", "-o",
+           str(cubin), str(_build.CSRC / f"{name}.cu")]
     return cubin, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True)
 
 
-def _body_key(symbol: str):
-    """(C, radius) of a mangled median_kernel<C, R> name, or None."""
-    m = re.search(r"median_kernelILi(\d)ELi(\d)EE", symbol)
+def _body_key(name: str, symbol: str):
+    """(C, radius) of a mangled <name>_kernel<C, R> name, or None."""
+    m = re.search(name + r"_kernelILi(\d)ELi(\d)EE", symbol)
     return (int(m[1]), int(m[2])) if m and m[2] != "0" else None
 
 
-def _median_bodies(cubin: Path, proc) -> None:
-    """One line per median body: ptxas's registers and spills, and the
-    integer min/max instructions in its SASS (two-input IMNMX or VIMNMX, and
-    the three-input VIMNMX3 that ptxas fuses from a min of a min).  A network
-    body's two-input equivalents, less those of the same C's radius-7
-    bisection body (the staging's reflections), are its network's: the
-    pruned count, or a few more.  Raises on a failed build, a spill, or a
-    network left unpruned."""
+def _body_report(name: str, cubin: Path, proc, sass_op: str):
+    """ptxas's {(C, radius): {"registers", "spill_bytes"}} of each body, and
+    {(C, radius): {group: count}} of the SASS instructions that match
+    `sass_op` (counted by its first group), or {} without cuobjdump.
+    Raises on a failed build or a missing body."""
     output, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"median bodies: nvcc exited {proc.returncode}\n"
+        raise RuntimeError(f"{name} bodies: nvcc exited {proc.returncode}\n"
                            f"{output}")
     ptxas, current = {}, None
     for ln in output.splitlines():
         m = re.search(r"entry function '([^']+)'|Function properties for (\S+)",
                       ln)
         if m:
-            current = _body_key(m[1] or m[2])
+            current = _body_key(name, m[1] or m[2])
             continue
         if current is None:
             continue
@@ -283,7 +297,9 @@ def _median_bodies(cubin: Path, proc) -> None:
         regs = re.search(r"Used (\d+) registers", ln)
         if regs:
             ptxas.setdefault(current, {})["registers"] = int(regs[1])
-    minmax = {}
+    if sorted(ptxas) != [(c, r) for c in (1, 3) for r in range(1, 8)]:
+        raise RuntimeError(f"{name} bodies: ptxas reported {sorted(ptxas)}")
+    counts = {}
     cuobjdump = shutil.which("cuobjdump") or str(
         Path(_build.nvcc()).with_name("cuobjdump"))
     if Path(cuobjdump).is_file():
@@ -294,35 +310,65 @@ def _median_bodies(cubin: Path, proc) -> None:
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
-                current = _body_key(m[1])
+                current = _body_key(name, m[1])
                 if current is not None:
-                    minmax[current] = [0, 0]
+                    counts[current] = {}
                 continue
-            op = re.search(r"\bV?IMNMX(3?)[.\s]", ln)
+            op = re.search(sass_op, ln)
             if current is not None and op:
-                minmax[current][len(op[1])] += 1
-    if sorted(ptxas) != [(c, r) for c in (1, 3) for r in range(1, 8)]:
-        raise RuntimeError(f"median bodies: ptxas reported {sorted(ptxas)}")
-    unpruned = []
+                counts[current][op[1]] = counts[current].get(op[1], 0) + 1
+    return ptxas, counts
+
+
+def _median_bodies(cubin: Path, proc) -> list:
+    """One line per median body: ptxas's registers and spills, and the
+    integer min/max instructions in its SASS (two-input IMNMX or VIMNMX, and
+    the three-input VIMNMX3 that ptxas fuses from a min of a min).  A network
+    body's two-input equivalents, less those of the same C's radius-7
+    bisection body (the staging's reflections), are its network's: the
+    pruned count, or a few more.  Returns the faults: a spill, or a network
+    left unpruned."""
+    ptxas, minmax = _body_report("median", cubin, proc, r"\bV?IMNMX(3?)[.\s]")
+    faults = []
     for (c, r), info in sorted(ptxas.items()):
         sass = "no cuobjdump"
         if (c, r) in minmax:
-            two, three = minmax[c, r]
+            two, three = minmax[c, r].get("", 0), minmax[c, r].get("3", 0)
             sass = f"{two}+{three}x3"
             if r in MEDIAN_NETWORK_MINMAX:
-                network = two + 2 * three - minmax[c, 7][0]
+                network = two + 2 * three - minmax[c, 7].get("", 0)
                 sass += f" network={network}"
                 if network > MEDIAN_NETWORK_MINMAX[r] + 8:
-                    unpruned.append((c, r))
+                    faults.append(f"median C={c} r={r} keeps dead comparators")
+        if info["spill_bytes"]:
+            faults.append(f"median C={c} r={r} spills")
         line("phase 2 median body", c=c, radius=r,
              selection="network" if r in MEDIAN_NETWORK_MINMAX else "bisection",
              registers=info.get("registers"), spill_bytes=info["spill_bytes"],
              sass_int_minmax=repr(sass),
              pruned_network_minmax=MEDIAN_NETWORK_MINMAX.get(r))
-    spilled = [key for key, info in sorted(ptxas.items()) if info["spill_bytes"]]
-    if spilled or unpruned:
-        raise RuntimeError(f"median bodies (C, radius): {spilled} spill, "
-                           f"{unpruned} keep dead comparators")
+    return faults
+
+
+def _bilateral_bodies(cubin: Path, proc) -> list:
+    """One line per bilateral body: ptxas's registers and spills, and the
+    MUFU.EX2 in its SASS beside the design's BILATERAL_ROWS (2R+1) C (one
+    column offset's taps).  Returns the faults: a spill, or another count
+    of exps."""
+    ptxas, mufu = _body_report("bilateral", cubin, proc, r"\bMUFU\.(EX2)\b")
+    faults = []
+    for (c, r), info in sorted(ptxas.items()):
+        design = BILATERAL_ROWS * (2 * r + 1) * c
+        ex2 = mufu.get((c, r), {}).get("EX2") if mufu else "no cuobjdump"
+        if mufu and ex2 != design:
+            faults.append(f"bilateral C={c} r={r}: {ex2} MUFU.EX2, not {design}")
+        if info["spill_bytes"]:
+            faults.append(f"bilateral C={c} r={r} spills")
+        line("phase 2 bilateral body", c=c, radius=r,
+             registers=info.get("registers"), spill_bytes=info["spill_bytes"],
+             sass_mufu_ex2=ex2, design_mufu_ex2=design,
+             exps_per_output_value=(2 * r + 1) ** 2)
+    return faults
 
 
 def phase_build() -> None:
@@ -330,7 +376,7 @@ def phase_build() -> None:
     missing = set(KERNELS) - set(sources)
     if missing:
         raise FileNotFoundError(f"no source for kernels {sorted(missing)}")
-    cubin, proc = _start_median_bodies()
+    bodies = {name: _start_bodies(name) for name in BODY_MACROS}
     try:
         report = _build.build(sources)
         for name in sources:
@@ -345,20 +391,36 @@ def phase_build() -> None:
             else:
                 line("phase 2 build", kernel=name, seconds=0, cached=True)
             _build.load(name)
-        _median_bodies(cubin, proc)
+        faults = (_median_bodies(*bodies["median"])
+                  + _bilateral_bodies(*bodies["bilateral"]))
+        if faults:
+            raise RuntimeError("kernel bodies: " + "; ".join(faults))
     finally:
-        proc.kill()  # nothing once it has ended
-        proc.wait()
+        for _, proc in bodies.values():
+            proc.kill()  # nothing once it has ended
+            proc.wait()
 
 
 def _kernel_cases():
     """(kernel, case, shape, params rows, block radius) of phase 3.  Inputs
     are uniform in [0, 1]; those of a "saturated" case are clamped from
-    2 u - 0.5, so a quarter of the values are exactly 0 and a quarter 1."""
+    2 u - 0.5, so a quarter of the values are exactly 0 and a quarter 1;
+    those of a "constant" case are all 0.37.  A bilateral case ending in
+    "sigma01_<s>" sets both sigma01 to s: 0 gives the most peaked weights
+    (sigma 1), 1 the flattest (sigma 100); the others take a distinct sigma
+    pair per image."""
     r17 = list(range(1, 8))
-    yield "bilateral", "tiles_8x512x512x3_r1-7", (8, 512, 512, 3), r17 + [4], 4
-    yield "bilateral", "tiles_8x512x512x1_r1-7", (8, 512, 512, 1), r17 + [4], 4
-    yield "bilateral", "frame_2x520x776x3_r3,7", (2, 520, 776, 3), [3, 7], 4
+    for kind in ("", "saturated_", "constant_"):
+        yield ("bilateral", f"{kind}tiles_8x512x512x3_r1-7", (8, 512, 512, 3),
+               r17 + [4], 4)
+        yield ("bilateral", f"{kind}tiles_8x512x512x1_r1-7", (8, 512, 512, 1),
+               r17 + [4], 4)
+        yield ("bilateral", f"{kind}frame_2x520x776x3_r3,7", (2, 520, 776, 3),
+               [3, 7], 4)
+    for sigma in (0, 1):
+        for kind in ("", "saturated_"):
+            yield ("bilateral", f"{kind}tiles_7x512x512x3_r1-7_sigma01_{sigma}",
+                   (7, 512, 512, 3), r17, 4)
     for r in r17:
         yield "median", f"tiles_4x512x512x3_r{r}", (4, 512, 512, 3), [r] * 4, 4
         yield "median", f"tiles_4x256x256x1_r{r}", (4, 256, 256, 1), [r] * 4, 4
@@ -383,7 +445,11 @@ def phase_kernels(dev) -> dict:
         x = torch.rand(shape, generator=gen, device=dev)
         if case.startswith("saturated"):
             x = torch.clamp(2.0 * x - 0.5, 0.0, 1.0)
-        p = kernel_params(name, radii, dev, block)
+        elif case.startswith("constant"):
+            x = torch.full_like(x, 0.37)
+        sigma = case.partition("sigma01_")[2]
+        p = kernel_params(name, radii, dev, block,
+                          float(sigma) if sigma else None)
         got = getattr(mod, name)(x, p)
         want = plain(x, p)
         torch.cuda.synchronize()
@@ -506,13 +572,17 @@ def phase_times(dev, pipes, frames) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     x = torch.rand((8, PATCH, PATCH, 3), generator=gen, device=dev)
-    for r in range(1, 8):
-        p = kernel_params("median", [r] * 8, dev)
-        ms = event_ms(lambda: km.median(x, p), reps=20)
-        bound, bound_by = median_bound(x, p)
-        line("phase 6 median time by radius", shape=tuple(x.shape), radius=r,
-             selection="network" if r in MEDIAN_NETWORK_MINMAX else "bisection",
-             ms=f"{ms:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by)
+    for name in ("median", "bilateral"):
+        mod = KERNELS[name][0]
+        for r in range(1, 8):
+            p = kernel_params(name, [r] * 8, dev)
+            ms = event_ms(lambda: getattr(mod, name)(x, p), reps=20)
+            bound, bound_by = BOUNDS[name](x, p)
+            selection = {} if name != "median" else {"selection": (
+                "network" if r in MEDIAN_NETWORK_MINMAX else "bisection")}
+            line(f"phase 6 {name} time by radius", shape=tuple(x.shape),
+                 radius=r, **selection, ms=f"{ms:.5f}",
+                 bound_ms=f"{bound:.5f}", bound_by=bound_by)
     times = {}
     for name, (mod, plain, *_) in KERNELS.items():
         p = kernel_params(name, [4] * 8, dev)

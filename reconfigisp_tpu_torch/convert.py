@@ -1,8 +1,9 @@
 """Carry a JAX pipeline state (or a module bank) across to the port.
 
-A JAX state is {"logits": {step_name: (P,)}, "weights": {op_name: pytree}}
-given as numpy arrays (utils/checkpoint.load_network returns that form).
-Weight pytrees are nested dicts and lists whose leaves are conv dicts
+A JAX state is {"logits": {step_name: (P,)}, "weights": {name: pytree}}
+given as numpy arrays (utils/checkpoint.load_network returns that form).  A
+weights name is an op's, or a step's (`step{i}_{op}`) for a step with
+weights of its own; names pass through as they are.  Weight pytrees are nested dicts and lists whose leaves are conv dicts
 {"w": (kh, kw, Cin, Cout) HWIO, "b": (Cout,)}; each becomes the
 `<path>.weight` (OIHW) and `<path>.bias` entries of a PyTorch state_dict,
 with list positions as indices, so Path-Restore's

@@ -8,13 +8,15 @@ from __future__ import annotations
 
 import torch
 
+from reconfigisp_tpu_torch.ops.nn import clip
+
 GAMMA_MAX = 3.0  # params01=0.5 -> gamma 1.0 (identity); range [1/3, 3]
 
 
 def gamma(x, params, weights=None):
     """y = x ** exponent, exponent log-uniform in [1/GAMMA_MAX, GAMMA_MAX]."""
     exponent = GAMMA_MAX ** (2.0 * params[:, 0] - 1.0)
-    xc = torch.clamp(x, 1e-8, 1.0)
+    xc = clip(x, 1e-8, 1.0)
     return xc ** exponent[:, None, None, None]
 
 
@@ -22,14 +24,14 @@ def grayworld(x, params=None, weights=None):
     """Gray-world white balance; the gains are detached statistics."""
     ch_mean = torch.mean(x, dim=(1, 2), keepdim=True)
     target = torch.mean(ch_mean, dim=3, keepdim=True)
-    gain = (target / torch.clamp(ch_mean, min=1e-6)).detach()
-    return torch.clamp(x * gain, 0.0, 1.0)
+    gain = (target / clip(ch_mean, 1e-6)).detach()
+    return clip(x * gain, 0.0, 1.0)
 
 
 def wb_manual(x, params, weights=None):
     """Per-channel gains in [0, 5] (0.2 is the identity)."""
     gain = params * 5.0
-    return torch.clamp(x * gain[:, None, None, :], 0.0, 1.0)
+    return clip(x * gain[:, None, None, :], 0.0, 1.0)
 
 
 def wb_whiteworld(x, params, weights=None):
@@ -48,8 +50,8 @@ def wb_whiteworld(x, params, weights=None):
     v_hi = torch.gather(srt, 1, hi[:, None, None].expand(n, 1, c))[:, 0]
     white = (v_lo.detach() * (1 - frac[:, None])
              + v_hi.detach() * frac[:, None])
-    gain = 1.0 / torch.clamp(white, min=1e-3)
-    return torch.clamp(x * gain[:, None, None, :], 0.0, 1.0)
+    gain = 1.0 / clip(white, 1e-3)
+    return clip(x * gain[:, None, None, :], 0.0, 1.0)
 
 
 def wb_quadratic(x, params, weights=None):
@@ -64,7 +66,7 @@ def wb_quadratic(x, params, weights=None):
               + cc[3] * b * g + cc[4] * b * r + cc[5] * g * r
               + cc[6] * b + cc[7] * g + cc[8] * r + cc[9])
         outs.append(yc)
-    return torch.clamp(torch.stack(outs, dim=-1), 0.0, 1.0)
+    return clip(torch.stack(outs, dim=-1), 0.0, 1.0)
 
 
 def skip(x, params=None, weights=None):

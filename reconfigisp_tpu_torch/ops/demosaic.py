@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from reconfigisp_tpu_torch.ops.nn import clip
+
 
 def _k(rows):
     return np.asarray(rows, np.float32).reshape(5, 5)
@@ -124,7 +126,7 @@ def _demosaic_conv(x: torch.Tensor, bank) -> torch.Tensor:
             term = masks[t] * stencil(bank[cname][t])
             acc = term if acc is None else acc + term
         chans.append(acc)
-    return torch.clamp(torch.stack(chans, dim=-1), 0.0, 1.0)
+    return clip(torch.stack(chans, dim=-1), 0.0, 1.0)
 
 
 def demosaic_nearest(x, params=None, weights=None):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from reconfigisp_tpu_torch.ops.kernels import _build
+from reconfigisp_tpu_torch.ops.nn import clip
 
 MAX_R = _build.MAX_R
 
@@ -62,8 +63,8 @@ def bilateral_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
             wgt = include * w_space * w_color
             num = num + wgt * tap
             den = den + wgt
-    out = num / torch.clamp(den, min=1e-8)
-    return torch.clamp(out / 255.0, 0.0, 1.0)
+    out = num / clip(den, 1e-8)
+    return clip(out / 255.0, 0.0, 1.0)
 
 
 def bilateral(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

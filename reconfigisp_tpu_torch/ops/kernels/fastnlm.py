@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels._build import MAX_R
 from reconfigisp_tpu_torch.ops.kernels.bilateral import size01_to_radius
+from reconfigisp_tpu_torch.ops.nn import clip
 
 launches = 0  # kernel launches since the caller last set it to 0
 
@@ -64,8 +65,8 @@ def fastnlm_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
             wgt = include * torch.exp(-d2 * inv_h2)
             num = num + wgt * tap
             den = den + wgt
-    out = (num / torch.clamp(den, min=1e-8)).permute(0, 2, 3, 1)
-    return torch.clamp(out / 255.0, 0.0, 1.0)
+    out = (num / clip(den, 1e-8)).permute(0, 2, 3, 1)
+    return clip(out / 255.0, 0.0, 1.0)
 
 
 def fastnlm(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels.bilateral import (
     pad_reflect, size01_to_radius)
+from reconfigisp_tpu_torch.ops.nn import clip
 
 STRIP = 64  # rows per tap stack in the plain form, as _median_fixed
 
@@ -33,7 +34,11 @@ launches = 0  # kernel launches since the caller last set it to 0
 def median_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     """The K = (2r+1)^2 taps of a strip of rows stacked, and the
     (K//2 + 1)-th smallest taken over them.  Strips bound the stack at K x
-    STRIP rows, as _median_fixed does."""
+    STRIP rows, as _median_fixed does.  The gradient is _median_taps': the
+    taps times their equality mask over its count, so that the cotangent is
+    split equally among exact ties (kthvalue's own backward sends it all to
+    one of them).  The value stays kthvalue's, bit for bit, as the kernel's;
+    _median_taps' own sum can round a tie by an ulp (ROADMAP, faults)."""
     n, h, w, c = x.shape
     r = int(size01_to_radius(params[0, 0]))
     padded = pad_reflect(x, r)
@@ -45,8 +50,13 @@ def median_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
                                    r + dx:r + dx + w, :]
                             for dy in range(-r, r + 1)
                             for dx in range(-r, r + 1)])
-        out[:, y0:y0 + rows] = torch.kthvalue(taps, k2 // 2 + 1, dim=0).values
-    return torch.clamp(out, 0.0, 1.0)
+        med = torch.kthvalue(taps.detach(), k2 // 2 + 1, dim=0).values
+        if taps.requires_grad:
+            mask = (taps.detach() == med).to(taps.dtype)
+            tied = (taps * mask).sum(0) / mask.sum(0)
+            med = med + (tied - tied.detach())  # med's value, bit for bit
+        out[:, y0:y0 + rows] = med
+    return clip(out, 0.0, 1.0)
 
 
 def median(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,20 @@ def init_conv(conv: nn.Conv2d, generator: torch.Generator) -> nn.Conv2d:
     return conv
 
 
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): minimum(maximum(x, lo), hi) with tensor bounds,
+    so that at an exact bound the gradient is 0.5, as each of the two splits
+    a tie, where torch.clamp passes 1.  A bound of None is left out.  Where
+    no gradient flows it is torch.clamp: the same values in one pass."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
+
+
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """Depth-to-space on NHWC with torch.nn.PixelShuffle channel semantics:
     (N, H, W, C*r*r) -> (N, H*r, W*r, C), channel = c*r*r + i*r + j."""

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from reconfigisp_tpu_torch.ops.nn import clip
+
 LUM_BGR = (0.114, 0.587, 0.299)
 
 
@@ -19,8 +21,8 @@ def _luminance(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scale_by_luminance(x, l_in, l_out):
-    ratio = l_out / torch.clamp(l_in, min=1e-6)
-    return torch.clamp(x * ratio, 0.0, 1.0)
+    ratio = l_out / clip(l_in, 1e-6)
+    return clip(x * ratio, 0.0, 1.0)
 
 
 def gtm_manual(x, params, weights=None, n_seg: int = 4):
@@ -36,7 +38,7 @@ def gtm_manual(x, params, weights=None, n_seg: int = 4):
     y_hi = torch.gather(knots, 3, seg + 1)
     start_x = seg.to(x.dtype) / n_seg
     out = y_lo + (x - start_x) * n_seg * (y_hi - y_lo)
-    return torch.clamp(out, 0.0, 1.0)
+    return clip(out, 0.0, 1.0)
 
 
 def tone_reinhard(x, params, weights=None):
@@ -46,7 +48,7 @@ def tone_reinhard(x, params, weights=None):
     white = 0.5 + 3.5 * params[:, 0]
     key = 0.05 + 0.85 * params[:, 1]
     l_in = _luminance(x)
-    log_avg = torch.exp(torch.mean(torch.log(torch.clamp(l_in, min=1e-6)),
+    log_avg = torch.exp(torch.mean(torch.log(clip(l_in, 1e-6)),
                                    dim=(1, 2, 3), keepdim=True))
     l_scaled = key[:, None, None, None] * l_in / log_avg
     w2 = (white ** 2)[:, None, None, None]
@@ -57,7 +59,7 @@ def tone_reinhard(x, params, weights=None):
 def tone_crysis(x, params, weights=None):
     """CryEngine exponential: y = 1 - exp(-e x), e = 0.1 + 9.9 p0."""
     expo = (0.1 + 9.9 * params[:, 0])[:, None, None, None]
-    return torch.clamp(1.0 - torch.exp(-expo * x), 0.0, 1.0)
+    return clip(1.0 - torch.exp(-expo * x), 0.0, 1.0)
 
 
 def tone_filmic(x, params, weights=None):
@@ -70,5 +72,5 @@ def tone_filmic(x, params, weights=None):
 
     white = (0.5 + 10.5 * params[:, 0])[:, None, None, None]
     expo = (1.0 + 9.0 * params[:, 1])[:, None, None, None]
-    y = hable(expo * x) / torch.clamp(hable(white), min=1e-6)
-    return torch.clamp(y, 0.0, 1.0)
+    y = hable(expo * x) / clip(hable(white), 1e-6)
+    return clip(y, 0.0, 1.0)

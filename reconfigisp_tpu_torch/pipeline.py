@@ -5,7 +5,9 @@ and takes a state pytree; here the pipeline is an nn.Module that holds its
 state: `logits` (one (P,) parameter per step that has parameters; a
 conditional op's is its raw flat FC vector) and `weights` (one learned
 module per op name, shared by the steps that use it: the proxy where the
-step runs its proxy).  `load_state` takes the state that
+step runs its proxy; and one per step name for a step whose state carries
+its own, which that step uses in place of its op's, as the JAX pipeline
+looks a step's name up before its op's).  `load_state` takes the state that
 convert.state_from_jax makes from a JAX state, or convert.state_from_bank
 from the in-repo module bank.
 """
@@ -96,12 +98,21 @@ class Pipeline(nn.Module):
 
     @torch.no_grad()
     def load_state(self, state: dict) -> "Pipeline":
-        """Copy in {"logits": {step: (P,)}, "weights": {op: state_dict}};
-        either part may be absent.  Unknown names raise KeyError."""
+        """Copy in {"logits": {step: (P,)}, "weights": {name: state_dict}};
+        either part may be absent.  A weights name is an op's, or a step's
+        (`step{i}_{op}`, as `steps` names them) whose step runs a learned
+        module: that step then gets a module of its own.  Unknown names
+        raise KeyError."""
         for step, value in state.get("logits", {}).items():
             self.logits[step].copy_(value)
-        for op, sd in state.get("weights", {}).items():
-            self.weights[op].load_state_dict(sd)
+        specs = dict(self.steps)
+        for name, sd in state.get("weights", {}).items():
+            if name not in self.weights and name in specs:
+                init = self._weights_init(specs[name])
+                if init is None:
+                    raise KeyError(f"step {name!r} runs no learned module")
+                self.weights[name] = init(torch.Generator()).to(self.device)
+            self.weights[name].load_state_dict(sd)
         return self
 
     def forward(self, x: torch.Tensor, return_intermediates: bool = False):
@@ -115,8 +126,8 @@ class Pipeline(nn.Module):
         mids = {}
         for step_name, spec in self.steps:
             params = self._materialize_params(step_name, spec, n, x.dtype)
-            weights = self.weights[spec.name] if spec.name in self.weights \
-                else None
+            weights = next((self.weights[key] for key in (step_name, spec.name)
+                            if key in self.weights), None)
             x = spec.get_apply(self.use_proxy)(x, params, weights)
             mids[step_name] = x
         if not return_intermediates:

@@ -35,13 +35,30 @@ def _case(shape, p, device):
 _RADII = [[(r - 1 + 0.5) / 7.0, 0.1 * r, 0.05 + 0.1 * r] for r in range(1, 8)]
 
 
-@pytest.mark.parametrize("shape,params", [
-    ((7, 64, 96, 3), _RADII),                    # radii 1..7, distinct sigmas
-    ((7, 40, 72, 1), _RADII),                    # one channel
-    ((1, 520, 776, 3), [[0.5, 0.2, 0.3]]),       # no block size divides it
+def _bilateral_rows(sigma):
+    """Radii 1..7, distinct sigmas; or both sigma01 = `sigma`: 0 gives the
+    most peaked weights (sigma 1), 1 the flattest (sigma 100)."""
+    if sigma is None:
+        return _RADII
+    return [[(r - 0.5) / 7.0, sigma, sigma] for r in range(1, 8)]
+
+
+@pytest.mark.parametrize("sigma", [None, 0.0, 1.0])
+@pytest.mark.parametrize("kind", ["uniform", "saturated", "constant"])
+@pytest.mark.parametrize("shape", [
+    (7, 64, 96, 3), (7, 40, 72, 1),
+    (7, 520, 776, 3),                            # no block size divides it
 ])
-def test_kernel_matches_plain(cuda, shape, params):
-    x, p = _case(shape, params, cuda)
+def test_kernel_matches_plain(cuda, shape, kind, sigma):
+    """Radii 1..7, one per image, within 2e-5 of the plain form: one exp2
+    per tap against two expf.  Saturated input, clamped from 2 u - 0.5, has
+    runs of exact 0.0 and 1.0; a constant frame gives every tap weight
+    exp2 of its spatial term alone."""
+    x, p = _case(shape, _bilateral_rows(sigma), cuda)
+    if kind == "saturated":
+        x = torch.clamp(2.0 * x - 0.5, 0.0, 1.0)
+    elif kind == "constant":
+        x = torch.full_like(x, 0.37)
     before = kb.launches
     got = kb.bilateral(x, p)
     torch.cuda.synchronize()

@@ -1,6 +1,10 @@
 """The median and fast-NLM plain PyTorch forms against the JAX forms: the jnp
 reference forms, the op-level dispatch and the Pallas kernels in interpret
-mode; and the CPU routing of their kernel wrappers."""
+mode; the CPU routing of their kernel wrappers; and the arithmetic of the
+bilateral, median and fast-NLM CUDA kernels emulated on the CPU."""
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -11,9 +15,10 @@ import torch
 from reconfigisp_tpu.ops import denoise as jdenoise
 from reconfigisp_tpu.ops.pallas_kernels import fastnlm_pallas, median_pallas
 
-from chip_smoke import MEDIAN_NETWORK_MINMAX
+from chip_smoke import BILATERAL_ROWS, MEDIAN_NETWORK_MINMAX
 from reconfigisp_tpu_torch import registry
 from reconfigisp_tpu_torch.ops import denoise
+from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 
@@ -443,6 +448,82 @@ def test_fastnlm_denoises():
     out = denoise.fastnlm(torch.from_numpy(noisy),
                           torch.tensor([[0.1, 0.5, 0.3]])).numpy()
     assert np.abs(out - clean).mean() < np.abs(noisy - clean).mean() * 0.6
+
+
+# ------------------------------------------------------------------ bilateral
+
+def _bilateral_kernel_arithmetic(x, params):
+    """csrc/bilateral.cu's arithmetic in plain PyTorch: every value staged
+    on the 0..255 scale times s = sqrt(kc), with kc and ks the two
+    log2(e) / (2 sigma^2) of each image; per tap one weight
+    exp2(fma(d, -d, -(dy^2 + dx^2) ks)) of the staged difference d, flushed
+    to 0 below 2^-126 as ex2.approx.ftz does; num takes an FMA (emulated in
+    float64, rounded once), den an add; each output sums dx outer and dy
+    inner, as a thread's column of rows meets its taps, and is divided by s
+    at the end."""
+    n, h, w, c = x.shape
+    radius = kb.size01_to_radius(params[:, 0])[:, None, None, None]
+    sc = 1.0 + 99.0 * params[:, 1]
+    ss = 1.0 + 99.0 * params[:, 2]
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale = torch.sqrt(log2e * (0.5 / (sc * sc)))[:, None, None, None]
+    ks = (log2e * (0.5 / (ss * ss)))[:, None, None, None]
+    staged = x * 255.0 * scale
+    padded = kb.pad_reflect(staged, kb.MAX_R)
+    r_max = int(radius.max())
+    num = torch.zeros_like(staged)
+    den = torch.zeros_like(staged)
+    fma = lambda a, b, acc: (a.double() * b.double() + acc.double()).float()
+    for dx in range(-r_max, r_max + 1):
+        for dy in range(-r_max, r_max + 1):
+            tap = padded[:, kb.MAX_R + dy:kb.MAX_R + dy + h,
+                         kb.MAX_R + dx:kb.MAX_R + dx + w, :]
+            d = tap - staged
+            arg = fma(d, -d, -float(dy * dy + dx * dx) * ks)
+            wgt = torch.where(arg < -126.0, 0.0, torch.exp2(arg))
+            wgt = wgt * (max(abs(dy), abs(dx)) <= radius).to(x.dtype)
+            num = fma(wgt, tap, num)
+            den = den + wgt
+    out = num / torch.clamp(den, min=1e-8) / scale / 255.0
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def _bilateral_test_image(kind, c):
+    rng = np.random.default_rng(53)
+    shape = (7, 20, 28, c)
+    u = rng.uniform(0, 1, shape)
+    if kind == "noise":
+        x = u
+    elif kind == "edge":
+        x = np.where(np.arange(shape[2]) < 13, 0.02, 0.98)[:, None] + 0.01 * u
+    else:                       # saturated: runs of exact 0.0 and 1.0
+        x = np.clip(2 * u - 0.5, 0, 1)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("sigma01", [0.0, 0.05, 1.0])
+@pytest.mark.parametrize("kind", ["noise", "edge", "saturated"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_bilateral_kernel_arithmetic_within_tolerance(c, kind, sigma01):
+    """The CUDA kernel's staged scale, single exp2 per tap and order of
+    sums against the plain form, before any card: within the 2e-5 that the
+    card holds it to.  Radii 1-7, one per image; sigma 1 (sigma01 = 0) gives
+    the most peaked weights, sigma 100 (sigma01 = 1) the flattest."""
+    x = _bilateral_test_image(kind, c)
+    p = torch.tensor([[_size01(r), sigma01, sigma01] for r in range(1, 8)],
+                     dtype=torch.float32)
+    got = _bilateral_kernel_arithmetic(x, p)
+    want = kb.bilateral_plain(x, p)
+    assert float((got - want).abs().max()) <= 2e-5
+
+
+def test_bilateral_rows_match_the_kernel_source():
+    """chip_smoke.py's count of MUFU.EX2 per body follows the rows a thread
+    owns in csrc/bilateral.cu."""
+    src = (Path(kb.__file__).resolve().parents[2] / "csrc" / "bilateral.cu"
+           ).read_text()
+    assert re.search(r"constexpr int kRows = (\d+);", src)[1] == str(
+        BILATERAL_ROWS)
 
 
 # ------------------------------------------------------------------ routing
