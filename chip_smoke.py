@@ -27,7 +27,16 @@ Phases, one line each:
      the same pipeline on the CPU;
   6. times with CUDA events: each path at f32 and bf16 CNN storage, the
      median and bilateral kernels at (8, 512, 512, 3) and every radius 1-7,
-     and each kernel there with every radius 4, beside its bound.
+     and each kernel there with every radius 4, beside its bound;
+  7. step-2 training (search.IspTrainer) as configs/SID_isp.yaml sets it
+     (batch 4 of 192x192 crops, l2, Adam, MultiStepLR), read through the
+     port's config.parse, on one batch made on the card from seed 0: the
+     flagship Bayer_01_Demosaic_03_sRGB_01_13_11 and both paths above, 8
+     steps each from the same start with the kernels and with the plain
+     forms, the launches counted; the loss must fall and the two runs'
+     logits agree.  Then each kernel's gradient through its autograd
+     Function against the plain form's: bit for bit where the backward is
+     direct, within STRIP_TOL where it goes by strips.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 tools/profile_torch_serving.py imports the serving set-up from here.
@@ -42,21 +51,25 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
-from reconfigisp_tpu_torch import Pipeline, convert, pool, precision
+from reconfigisp_tpu_torch import Pipeline, config, convert, pool, precision
 from reconfigisp_tpu_torch.deploy import make_serving_fn
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.parallel.tiling import tile_positions
+from reconfigisp_tpu_torch.search import IspTrainer
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
 
 ROOT = Path(__file__).resolve().parent
 BANK = ROOT / "experiments" / "proxies" / "default.ckpt"
+SID_ISP = ROOT / "configs" / "SID_isp.yaml"
 SLICE1 = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"   # bilateral
 SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"   # median, fast NLM
 PATHS = {SLICE1: ("bilateral",), SLICE2: ("median", "fastnlm")}
@@ -66,6 +79,25 @@ E2E_TOL = 1e-4         # whole path, kernels vs plain forms, TF32 off
 ZOO_TOL = 1e-4         # one op on the card vs on the CPU: conv sums reordered
 BF16_TOL = 5e-2        # whole path, bf16 vs f32 CNN storage: 8-bit mantissa
                        # through 14 conv layers
+TRAIN_STEPS, TRAIN_WARMUP = 8, 2   # steps per run; untimed first steps
+# Logits after TRAIN_STEPS steps, kernels vs plain forms.  The backward is
+# the plain form's on the same saved inputs, so the runs part only by the
+# kernels' forward error (at most 2e-5 bilateral, 0 median, 5e-5 fast NLM)
+# in values of order 0.1-1 downstream: a relative change of at most about
+# 5e-4 in each gradient.  Adam's step is lr times a ratio of moments that a
+# common scale of the gradients leaves unchanged, so that moves a logit by
+# about lr 5e-4 = 5e-7 a step, 4e-6 over 8 steps; the tolerance leaves 25x.
+TRAIN_LOGIT_TOL = 1e-4
+# Gradients by strips against the direct plain gradient: the same arithmetic
+# on slabs of rows, so the input gradient differs only where two slabs' parts
+# are added (1e-5); the params' gradient, a sum over the frame, in another
+# order (1e-5 of its largest value).
+STRIP_TOL = 1e-5
+# (case, x shape, radius per image, fast-NLM block radius) of the gradient
+# check: SID_isp's training batch, whose 192 rows take the direct backward,
+# and a 1024-row frame at radius 7, which goes by strips
+GRAD_CASES = (("direct", (4, 192, 192, 3), (4, 5, 6, 7), 4),
+              ("strip", (1, 1024, 768, 3), (7,), 7))
 
 # name -> (module, plain form, params per image, tolerance against the plain
 # form, TPU kernel it replaces).  Tolerances: bilateral takes one exp2 per
@@ -599,6 +631,161 @@ def phase_times(dev, pipes, frames) -> dict:
     return times
 
 
+def make_training_batch(dev, n: int, size: int) -> dict:
+    """n pairs of size x size crops, made on the card from seed 0: a smooth
+    BGR target, and as input its RGGB mosaic at half the light with noise,
+    as a short exposure of SID's gives."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    coarse = torch.rand((n, 3, size // 16, size // 16), generator=gen,
+                        device=dev)
+    gt = F.interpolate(coarse, size=(size, size), mode="bilinear",
+                       align_corners=False).permute(0, 2, 3, 1).contiguous()
+    mosaic = torch.empty((n, size, size, 1), device=dev)
+    mosaic[:, 0::2, 0::2, 0] = gt[:, 0::2, 0::2, 2]   # R
+    mosaic[:, 0::2, 1::2, 0] = gt[:, 0::2, 1::2, 1]   # G
+    mosaic[:, 1::2, 0::2, 0] = gt[:, 1::2, 0::2, 1]   # G
+    mosaic[:, 1::2, 1::2, 0] = gt[:, 1::2, 1::2, 0]   # B
+    noise = torch.randn(mosaic.shape, generator=gen, device=dev)
+    return {"noisy": torch.clamp(0.5 * mosaic + 0.02 * noise, 0.0, 1.0),
+            "gt": gt}
+
+
+def sid_isp_options():
+    """configs/SID_isp.yaml read through the port's config.parse, its
+    paths under a temporary root: (architecture, use_proxy, train options,
+    batch size, crop size)."""
+    with tempfile.TemporaryDirectory() as root:
+        opt = config.parse(str(SID_ISP), root=root)
+    data = opt["datasets"]["train"]
+    return (opt["network_G"]["architecture"],
+            config.network_uses_proxy(opt["network_G"]), opt["train"],
+            data["batch_size"], data["data_size"])
+
+
+def make_trainer(dev, arch, use_proxy, bank, train_opt,
+                 plain: bool = False) -> IspTrainer:
+    """An IspTrainer on a pipeline with the bank's weights and the init
+    logits, its kernel ops on their plain forms if `plain`."""
+    pipe = load_pipeline(dev, arch, use_proxy, bank)
+    if plain:
+        pipe.steps = _with_plain_kernels(pipe)
+    return IspTrainer(pipe, train_opt)
+
+
+def _train_run(trainer: IspTrainer, batch: dict) -> dict:
+    """TRAIN_STEPS steps, with every count set to 0 just before the steps
+    and read just after."""
+    dev = trainer.pipeline.device
+    start_logits = convert.state_to_jax(trainer.pipeline)["logits"]
+    before = trainer.eval_loss(batch)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod, *_ in KERNELS.values():
+        mod.launches = 0
+    losses = []
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_WARMUP:
+            start.record()
+        losses.append(trainer.train_step(batch)["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
+    return {"losses": losses, "before": before,
+            "after": trainer.eval_loss(batch), "launches": launches,
+            "ms": start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "start_logits": start_logits,
+            "logits": convert.state_to_jax(trainer.pipeline)["logits"]}
+
+
+def phase_training(dev, bank) -> dict:
+    """Step-2 training of SID_isp's pipeline and of both kernel paths, with
+    the kernels and with the plain forms; returns the kernels' forward
+    launches over the kernel runs."""
+    flagship, use_proxy, train_opt, n, size = sid_isp_options()
+    batch = make_training_batch(dev, n, size)
+    train_launches = {name: 0 for name in KERNELS}
+    for arch, kernels in {flagship: (), **PATHS}.items():
+        runs = {plain: _train_run(make_trainer(dev, arch, use_proxy, bank,
+                                               train_opt, plain), batch)
+                for plain in (False, True)}
+        for plain, run in runs.items():
+            mode = "plain" if plain else "kernels"
+            if not all(math.isfinite(v) for v in run["losses"]):
+                raise AssertionError(f"{arch} {mode}: losses {run['losses']}")
+            if not run["after"] < run["before"]:
+                raise AssertionError(
+                    f"{arch} {mode}: eval loss {run['before']} -> "
+                    f"{run['after']} did not fall")
+            expected = {name: 0 if plain or name not in kernels
+                        else TRAIN_STEPS for name in KERNELS}
+            if run["launches"] != expected:
+                raise AssertionError(f"{arch} {mode}: launches "
+                                     f"{run['launches']} != {expected}")
+            line("phase 7 training", arch=arch, mode=mode,
+                 batch=tuple(batch["noisy"].shape), steps=TRAIN_STEPS,
+                 ms_per_step=f"{run['ms']:.3f}",
+                 peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+                 eval_loss=f"{run['before']:.6f}->{run['after']:.6f}",
+                 launches=json.dumps(run["launches"]).replace(" ", ""))
+        kern, ref = runs[False], runs[True]
+        diff = max(float(abs(kern["logits"][k] - ref["logits"][k]).max())
+                   for k in ref["logits"])
+        moved = max(float(abs(v - kern["start_logits"][k]).max())
+                    for k, v in kern["logits"].items())
+        loss_diff = max(abs(a - b)
+                        for a, b in zip(kern["losses"], ref["losses"]))
+        line("phase 7 kernels vs plain logits", arch=arch,
+             max_abs_diff=f"{diff:.3e}", tol=TRAIN_LOGIT_TOL,
+             max_logit_move=f"{moved:.3e}", max_loss_diff=f"{loss_diff:.3e}")
+        if not diff <= TRAIN_LOGIT_TOL:
+            raise AssertionError(f"{arch}: logits {diff} > {TRAIN_LOGIT_TOL}")
+        for name in KERNELS:
+            train_launches[name] += kern["launches"][name]
+    return train_launches
+
+
+def phase_gradients(dev) -> None:
+    """Each kernel's gradient through its autograd Function against the
+    plain form's autograd, for x and params, of sum(k(x, p) g): at the
+    training batch, where the backward is direct, bit for bit; at a
+    1024-row frame, radius 7, where it goes by strips, within STRIP_TOL."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for name, (mod, plain, *_) in KERNELS.items():
+        for case, shape, radii, block in GRAD_CASES:
+            x = torch.rand(shape, generator=gen, device=dev)
+            g = torch.randn(shape, generator=gen, device=dev)
+            p = kernel_params(name, radii, dev, block)
+            if name == "fastnlm":   # h = 90.1: noise patches keep weights
+                p[:, 2] = 0.9       # of about exp(-255^2 / 6 / h^2) = 0.26
+            grads = []
+            for fn in (getattr(mod, name), plain):
+                xs, ps = x.clone().requires_grad_(), p.clone().requires_grad_()
+                grads.append(torch.autograd.grad(fn(xs, ps), (xs, ps), g,
+                                                 allow_unused=True))
+            torch.cuda.synchronize()
+            (gx, gp), (wx, wp) = grads
+            if (gp is None) != (wp is None):
+                raise AssertionError(f"{name} {case}: params gradient "
+                                     f"{gp is None} vs {wp is None}")
+            dx = float((gx - wx).abs().max())
+            dp = 0.0 if wp is None else float((gp - wp).abs().max())
+            scale = 0.0 if wp is None else float(wp.abs().max())
+            line("phase 7 gradient vs plain", kernel=name, case=case,
+                 shape=shape, radius=max(radii),
+                 max_abs_diff_x=f"{dx:.3e}", max_abs_diff_params=f"{dp:.3e}",
+                 params_grad_max=f"{scale:.3e}")
+            if case == "direct":
+                same = torch.equal(gx, wx) and (wp is None
+                                                or torch.equal(gp, wp))
+                if not same:
+                    raise AssertionError(f"{name} direct: not bit-identical")
+            elif not (dx <= STRIP_TOL and dp <= STRIP_TOL * max(1.0, scale)):
+                raise AssertionError(f"{name} strip: {dx}, {dp} > {STRIP_TOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -619,11 +806,15 @@ def main() -> int:
         launches.update({name: counts[name] for name in PATHS[arch]})
     phase_zoo(dev, bank)
     times = phase_times(dev, pipes, frames)
+    del frames, pipes
+    train_launches = phase_training(dev, bank)
+    phase_gradients(dev)
 
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"reconfigisp_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": launches[name],
+        "train_launches": train_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

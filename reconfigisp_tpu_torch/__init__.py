@@ -12,7 +12,8 @@ Public contract (the JAX package's):
   * module parameters are stored as logits and squashed with sigmoid.
 
 Entry points (`Pipeline`, `deploy.make_serving_fn`) run on `cuda` unless the
-caller passes `device="cpu"`, and raise when CUDA is asked for but absent.
+caller passes `device="cpu"`, and raise when CUDA is asked for but absent;
+`search.IspTrainer` trains a Pipeline where it lies.
 """
 
 from reconfigisp_tpu_torch.version import __version__

@@ -96,17 +96,13 @@ def load(name: str) -> ctypes.CDLL:
 
 def on_card(op: str, x: torch.Tensor, params: torch.Tensor) -> bool:
     """Where `op` runs: False for a CPU tensor (the plain form), True for a
-    CUDA tensor (the kernel).  Raises for any other device, and for CUDA
-    inputs that require grad: the kernels have no backward (autograd
-    Functions with the plain forms' backward are ROADMAP work)."""
+    CUDA tensor (the kernel, inside _vjp.WindowedKernel, whose backward is
+    the plain form's gradient, so inputs that require grad run it too).
+    Raises for any other device."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{op} runs on cuda or cpu, not {x.device}")
-    if x.requires_grad or params.requires_grad:
-        raise RuntimeError(
-            f"{op} on CUDA is forward-only: call it under torch.no_grad() "
-            f"or torch.inference_mode()")
     return True
 
 

@@ -6,8 +6,10 @@ one place that chooses: it launches the kernel for a CUDA tensor and counts
 the launch in `launches`; for a tensor on the CPU it computes
 `bilateral_plain`, the same function in PyTorch (the form of
 reconfigisp_tpu/ops/denoise.py:_bilateral_jnp), which is also the kernel's
-reference on the card.  The kernel has no backward yet, so on CUDA it
-refuses inputs that require grad.
+reference on the card.  On CUDA the kernel runs inside an autograd Function
+(_vjp.WindowedKernel) whose backward is bilateral_plain's gradient, so a
+CUDA input that requires grad launches the kernel too; HALO is the rows of
+input one output row reaches, for the strip backward.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 [window01, sigma_color01, sigma_space01]; radius = clip(floor(7 window01),
@@ -17,12 +19,13 @@ x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from reconfigisp_tpu_torch.ops.kernels import _build
-from reconfigisp_tpu_torch.ops.nn import clip
+from reconfigisp_tpu_torch.ops.kernels._vjp import WindowedKernel
+from reconfigisp_tpu_torch.ops.nn import clip, reflect
 
 MAX_R = _build.MAX_R
+HALO = MAX_R
 
 launches = 0  # kernel launches since the caller last set it to 0
 
@@ -34,8 +37,7 @@ def size01_to_radius(p: torch.Tensor) -> torch.Tensor:
 
 def pad_reflect(x: torch.Tensor, r: int) -> torch.Tensor:
     """NHWC reflect padding (the edge pixel is not repeated)."""
-    xp = F.pad(x.permute(0, 3, 1, 2), (r, r, r, r), mode="reflect")
-    return xp.permute(0, 2, 3, 1)
+    return reflect(reflect(x, r, 1), r, 2)
 
 
 def bilateral_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
@@ -73,6 +75,7 @@ def bilateral(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     global launches
     if not _build.on_card("bilateral", x, params):
         return bilateral_plain(x, params)
-    out = _build.launch("bilateral", x, params, 3)
+    out = WindowedKernel.apply(x, params, "bilateral", bilateral_plain, 3,
+                               HALO)
     launches += 1
     return out

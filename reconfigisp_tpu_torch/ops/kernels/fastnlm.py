@@ -10,8 +10,11 @@ Pallas kernel boxes differences of the reflect-padded image, so near the
 frame edges it differs from both.)  The kernel sums each box horizontally
 first and takes exp2 of the box sum times one scale per image, where this
 form divides by 2b+1 twice and by h^2 and takes exp: the two agree within
-5e-5.  The kernel has no backward yet, so on CUDA it refuses inputs that
-require grad.
+5e-5.  On CUDA the kernel runs inside an autograd Function
+(_vjp.WindowedKernel) whose backward is fastnlm_plain's gradient, as the JAX
+backward differentiates _fastnlm_jnp, so a CUDA input that requires grad
+launches the kernel too.  One output row reaches HALO rows of input: the
+search radius and the block radius, 7 each at most.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 [block01, search01, decay01].  The block radius comes from params[0, 0] for
@@ -22,12 +25,14 @@ decay h = 1 + 99 decay01 (0..255 scale) are per image.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels._build import MAX_R
+from reconfigisp_tpu_torch.ops.kernels._vjp import WindowedKernel
 from reconfigisp_tpu_torch.ops.kernels.bilateral import size01_to_radius
-from reconfigisp_tpu_torch.ops.nn import clip
+from reconfigisp_tpu_torch.ops.nn import clip, reflect
+
+HALO = 2 * MAX_R
 
 launches = 0  # kernel launches since the caller last set it to 0
 
@@ -37,9 +42,9 @@ def box_filter(d: torch.Tensor, b: int) -> torch.Tensor:
     and divided by 2b+1, then columns, in _box_filter's order."""
     k = 2 * b + 1
     h, w = d.shape[2:]
-    rows = F.pad(d, (0, 0, b, b), mode="reflect")
+    rows = reflect(d, b, 2)
     acc = sum(rows[:, :, i:i + h] for i in range(k)) / k
-    cols = F.pad(acc, (b, b, 0, 0), mode="reflect")
+    cols = reflect(acc, b, 3)
     return sum(cols[:, :, :, i:i + w] for i in range(k)) / k
 
 
@@ -52,7 +57,7 @@ def fastnlm_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     search = size01_to_radius(params[:, 1])[:, None, None, None]
     inv_h2 = 1.0 / ((1.0 + 99.0 * params[:, 2]) ** 2)[:, None, None, None]
     x255 = (x * 255.0).permute(0, 3, 1, 2)
-    padded = F.pad(x255, (MAX_R,) * 4, mode="reflect")
+    padded = reflect(reflect(x255, MAX_R, 2), MAX_R, 3)
     s_max = int(search.max())
     num = torch.zeros_like(x255)
     den = torch.zeros_like(x255)
@@ -75,6 +80,6 @@ def fastnlm(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     global launches
     if not _build.on_card("fastnlm", x, params):
         return fastnlm_plain(x, params)
-    out = _build.launch("fastnlm", x, params, 3)
+    out = WindowedKernel.apply(x, params, "fastnlm", fastnlm_plain, 3, HALO)
     launches += 1
     return out

@@ -9,8 +9,10 @@ reference on the card.  Both select the exact middle tap, so they agree bit
 for bit: the kernel by pruned selection networks in registers, shared by
 each 2x2 block of pixels, at radii up to 4, and by a bisection on the
 float's order-preserving key above (tests/test_torch_windowed.py emulates
-both on the CPU).  The kernel has no backward yet, so on CUDA it refuses
-inputs that require grad.
+both on the CPU).  On CUDA the kernel runs inside an autograd Function
+(_vjp.WindowedKernel) whose backward is median_plain's gradient, so a CUDA
+input that requires grad launches the kernel too.  The params set only the
+radius, an integer, so no gradient reaches them, on either path.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 1) in [0, 1]: [size01].  The
 radius clip(floor(7 size01), 0, 6) + 1 comes from params[0, 0] for the whole
@@ -22,11 +24,13 @@ from __future__ import annotations
 import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
+from reconfigisp_tpu_torch.ops.kernels._vjp import WindowedKernel
 from reconfigisp_tpu_torch.ops.kernels.bilateral import (
     pad_reflect, size01_to_radius)
 from reconfigisp_tpu_torch.ops.nn import clip
 
 STRIP = 64  # rows per tap stack in the plain form, as _median_fixed
+HALO = _build.MAX_R  # rows of input one output row reaches
 
 launches = 0  # kernel launches since the caller last set it to 0
 
@@ -65,6 +69,7 @@ def median(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     global launches
     if not _build.on_card("median", x, params):
         return median_plain(x, params)
-    out = _build.launch("median", x, params, 1)
+    out = WindowedKernel.apply(x, params.detach(), "median", median_plain, 1,
+                               HALO)
     launches += 1
     return out

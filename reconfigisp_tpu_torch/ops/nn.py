@@ -49,6 +49,15 @@ def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
     return x
 
 
+def reflect(x: torch.Tensor, r: int, dim: int) -> torch.Tensor:
+    """Reflect padding by r along `dim`, the edge not repeated (jnp.pad's
+    "reflect"), from flipped slices joined on: its backward adds in a fixed
+    order, where F.pad's reflect backward adds with atomics on CUDA."""
+    n = x.shape[dim]
+    return torch.cat([x.narrow(dim, 1, r).flip(dim), x,
+                      x.narrow(dim, n - 1 - r, r).flip(dim)], dim)
+
+
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """Depth-to-space on NHWC with torch.nn.PixelShuffle channel semantics:
     (N, H, W, C*r*r) -> (N, H*r, W*r, C), channel = c*r*r + i*r + j."""

@@ -1,5 +1,6 @@
 """The bilateral, median and fast-NLM CUDA kernels against their plain
-PyTorch forms, on the card.
+PyTorch forms, on the card, forward and backward, and a few steps of
+step-2 training through them.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs alone:
@@ -11,10 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+import reconfigisp_tpu_torch as rt
+from reconfigisp_tpu_torch import convert
 from reconfigisp_tpu_torch.ops import denoise
+from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
+from reconfigisp_tpu_torch.search import IspTrainer
 
 pytestmark = pytest.mark.cuda
 
@@ -86,12 +91,6 @@ def test_wrapper_copies_strided_input(cuda):
     want = kb.bilateral(xt.contiguous(), pe.contiguous())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-
-
-def test_op_refuses_grad_on_cuda(cuda):
-    x, p = _case((1, 16, 16, 3), [[0.5, 0.5, 0.5]], cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        denoise.bilateral(x.requires_grad_(), p)
 
 
 # ------------------------------------------------------------------ median
@@ -191,9 +190,80 @@ def test_wrappers_copy_strided_input(cuda, name):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("name", ["median", "fastnlm"])
-def test_ops_refuse_grad_on_cuda(cuda, name):
-    _, n_params = _OPS[name]
-    x, p = _case((1, 16, 16, 3), [[0.5] * n_params], cuda)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        getattr(denoise, name)(x.requires_grad_(), p)
+_PLAIN = {"bilateral": kb.bilateral_plain, "median": km.median_plain,
+          "fastnlm": kf.fastnlm_plain}
+_MODULES = {"bilateral": kb, "median": km, "fastnlm": kf}
+
+
+def _grad_rows(name, n):
+    """Radius 7 for image 0 (the batch's median and fast-NLM block radius),
+    then radii 6, 5, ... with distinct sigmas and decays."""
+    r = [(max(7 - i, 1) - 0.5) / 7.0 for i in range(n)]
+    if name == "median":
+        return [[v] for v in r]
+    return [[v, 0.05 + 0.2 * i, 0.1 + 0.15 * i] for i, v in enumerate(r)]
+
+
+@pytest.mark.parametrize("shape", [(3, 48, 40, 3), (2, 700, 24, 1)],
+                         ids=["direct", "strip"])
+@pytest.mark.parametrize("name", ["bilateral", "median", "fastnlm"])
+def test_op_gradient_on_cuda_is_the_plain_forms(cuda, name, shape):
+    """An input that requires grad launches the kernel, and its gradient for
+    x and params is the plain form's autograd: bit for bit where the
+    backward is direct (<= 640 rows), within 1e-5 (the params' within 1e-5
+    of their largest value: a sum over the frame in another order) where
+    it goes by strips."""
+    x, p = _case(shape, _grad_rows(name, shape[0]), cuda)
+    g = torch.randn(shape, generator=torch.Generator(cuda).manual_seed(5),
+                    device=cuda)
+    mod = _MODULES[name]
+    grads = []
+    for fn in (getattr(denoise, name), _PLAIN[name]):
+        xs, ps = x.clone().requires_grad_(), p.clone().requires_grad_()
+        before = mod.launches
+        out = fn(xs, ps)
+        assert mod.launches == before + (fn is not _PLAIN[name])
+        grads.append(torch.autograd.grad(out, (xs, ps), g, allow_unused=True))
+    torch.cuda.synchronize()
+    (gx, gp), (wx, wp) = grads
+    assert (gp is None) == (wp is None) == (name == "median")
+    if shape[1] <= _vjp.DIRECT_ROWS:
+        assert torch.equal(gx, wx)
+        assert gp is None or torch.equal(gp, wp)
+        return
+    assert float((gx - wx).abs().max()) <= 1e-5
+    if gp is not None:
+        scale = max(1.0, float(wp.abs().max()))
+        assert float((gp - wp).abs().max()) <= 1e-5 * scale
+
+
+def test_isp_trainer_on_cuda_follows_the_cpu(cuda):
+    """Three IspTrainer steps on the median + fast-NLM path, on the card
+    (one launch of each kernel a step) and on the CPU from the same state,
+    TF32 off: losses within 1e-4 relative and logits within 1e-4 (the
+    kernels' forward tolerances and cuDNN's order of sums, through Adam's
+    scale-free step at lr 1e-3)."""
+    arch = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"
+    rng = np.random.default_rng(32)
+    batch = {"noisy": rng.uniform(0.02, 0.6, (2, 64, 64, 1)).astype(
+        np.float32),
+             "gt": rng.uniform(0.05, 0.95, (2, 64, 64, 3)).astype(np.float32)}
+    opt = {"lr_G": 1e-3, "lr_steps": [2]}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = IspTrainer(rt.Pipeline(arch, device="cpu"), opt)
+        card = IspTrainer(rt.Pipeline(arch, device=cuda), opt)
+        card.pipeline.load_state(convert.state_from_jax(
+            convert.state_to_jax(cpu.pipeline)))
+        km.launches = kf.launches = 0
+        got = [card.train_step(batch)["loss"] for _ in range(3)]
+        assert (km.launches, kf.launches) == (3, 3)
+        want = [cpu.train_step(batch)["loss"] for _ in range(3)]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    got_logits = convert.state_to_jax(card.pipeline)["logits"]
+    for name, value in convert.state_to_jax(cpu.pipeline)["logits"].items():
+        np.testing.assert_allclose(got_logits[name], value, atol=1e-4,
+                                   err_msg=name)
