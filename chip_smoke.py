@@ -13,9 +13,10 @@ Phases, one line each:
      (bilateral);
   3. each kernel against its plain PyTorch form on the card: bilateral and
      median at radii 1-7, fast NLM at block radii 1-7 with per-image search
-     radii 1-7; C = 3 and C = 1, and a ragged 520x776 frame; the median and
-     the bilateral also on saturated input (runs of exact 0 and 1), the
-     bilateral on constant input and at both sigma extremes;
+     radii 1-7; C = 3 and C = 1, a ragged 520x776 frame and phase 7's
+     4x192x192 training batch; the median and the bilateral also on
+     saturated input (runs of exact 0 and 1), the bilateral on constant
+     input and at both sigma extremes;
   4. the two serving paths end to end on two 2848x4256 frames (patch 512,
      stride 480, chunk 8): the SID path with bilateral,
      Bayer_01_Demosaic_03_sRGB_07_01_13_11, and with median then fast NLM,
@@ -34,12 +35,13 @@ Phases, one line each:
      flagship Bayer_01_Demosaic_03_sRGB_01_13_11 and both paths above, 8
      steps each from the same start with the kernels and with the plain
      forms, the launches counted; the loss must fall and the two runs'
-     logits agree.  Then each kernel's gradient through its autograd
-     Function against the plain form's: bit for bit where the backward is
-     direct, within STRIP_TOL where it goes by strips.
+     losses and logits agree.  Then each kernel's gradient through its
+     autograd Function against the plain form's: bit for bit where the
+     backward is direct, within STRIP_TOL where it goes by strips.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
-tools/profile_torch_serving.py imports the serving set-up from here.
+The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
+their set-up from here.
 """
 
 from __future__ import annotations
@@ -88,6 +90,14 @@ TRAIN_STEPS, TRAIN_WARMUP = 8, 2   # steps per run; untimed first steps
 # common scale of the gradients leaves unchanged, so that moves a logit by
 # about lr 5e-4 = 5e-7 a step, 4e-6 over 8 steps; the tolerance leaves 25x.
 TRAIN_LOGIT_TOL = 1e-4
+# Each step's loss, kernels vs plain forms, relative to the loss.  The loss
+# (about 0.07) is a mean over n = 4 x 192 x 192 x 3 = 442,368 squared
+# residuals r (|r| about 0.26); the kernels' forward errors are differences
+# of rounding order, of either sign, at most 5e-5, so even at that size
+# everywhere they move the mean by about 2 x 5e-5 x 0.26 / sqrt(n) = 4e-8,
+# 6e-7 of the loss; an error of 1e-4 that follows the residual's sign moves
+# it by 2 x 1e-4 x 0.26 = 5e-5, 7e-4 of it.
+TRAIN_LOSS_RTOL = 1e-6
 # Gradients by strips against the direct plain gradient: the same arithmetic
 # on slabs of rows, so the input gradient differs only where two slabs' parts
 # are added (1e-5); the params' gradient, a sum over the frame, in another
@@ -466,6 +476,18 @@ def _kernel_cases():
         yield "fastnlm", f"tiles_7x512x512x3_b{b}_s1-7", (7, 512, 512, 3), r17, b
         yield "fastnlm", f"tiles_7x256x256x1_b{b}_s1-7", (7, 256, 256, 1), r17, b
     yield "fastnlm", "frame_2x520x776x3_b4_s3,7", (2, 520, 776, 3), [3, 7], 4
+    # phase 7's training batch, 4 x 192 x 192: C = 3 as the sRGB ops take
+    # it, and C = 1
+    for c in (3, 1):
+        shape = (4, 192, 192, c)
+        for radii in ((1, 2, 3, 4), (4, 5, 6, 7)):
+            yield ("bilateral", f"train_4x192x192x{c}_r{radii[0]}-{radii[-1]}",
+                   shape, list(radii), 4)
+        for r in r17:
+            yield "median", f"train_4x192x192x{c}_r{r}", shape, [r] * 4, 4
+        for b in r17:
+            yield ("fastnlm", f"train_4x192x192x{c}_b{b}_s1,3,5,7", shape,
+                   [1, 3, 5, 7], b)
 
 
 def phase_kernels(dev) -> dict:
@@ -735,13 +757,17 @@ def phase_training(dev, bank) -> dict:
                    for k in ref["logits"])
         moved = max(float(abs(v - kern["start_logits"][k]).max())
                     for k, v in kern["logits"].items())
-        loss_diff = max(abs(a - b)
+        loss_diff = max(abs(a - b) / abs(b)
                         for a, b in zip(kern["losses"], ref["losses"]))
         line("phase 7 kernels vs plain logits", arch=arch,
              max_abs_diff=f"{diff:.3e}", tol=TRAIN_LOGIT_TOL,
-             max_logit_move=f"{moved:.3e}", max_loss_diff=f"{loss_diff:.3e}")
+             max_logit_move=f"{moved:.3e}",
+             max_loss_rel_diff=f"{loss_diff:.3e}", loss_rtol=TRAIN_LOSS_RTOL)
         if not diff <= TRAIN_LOGIT_TOL:
             raise AssertionError(f"{arch}: logits {diff} > {TRAIN_LOGIT_TOL}")
+        if not loss_diff <= TRAIN_LOSS_RTOL:
+            raise AssertionError(
+                f"{arch}: losses {kern['losses']} vs {ref['losses']}")
         for name in KERNELS:
             train_launches[name] += kern["launches"][name]
     return train_launches

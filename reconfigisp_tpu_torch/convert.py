@@ -96,21 +96,22 @@ def state_to_jax(pipe) -> dict:
     return _jax_tree(pipe, lambda p: p, weights=True)
 
 
-def adam_state_to_jax(optimizer: torch.optim.Adam, pipe,
-                      train_weights: bool) -> dict:
-    """torch.optim.Adam's state over the pipeline's logits (and weights,
-    with `train_weights`) -> {"m", "v", "t"}.  A parameter that has had no
-    gradient yet (the median's logit never gets one) has m = v = 0, as in
-    JAX, where its gradient is 0; t is the steps taken."""
+def adam_state_to_jax(optimizer: torch.optim.Adam, pipe) -> dict:
+    """torch.optim.Adam's state over the pipeline's logits, and over its
+    weights where the optimizer holds them -> {"m", "v", "t"}.  A parameter
+    that has had no gradient yet (the median's logit never gets one) has
+    m = v = 0, as in JAX, where its gradient is 0; t is the steps taken."""
     state = optimizer.state
+    held = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    weights = any(id(p) in held for p in pipe.weights.parameters())
 
     def moment(key):
         return lambda p: (state[p][key] if p in state
                           else torch.zeros_like(p))
 
     t = max((int(st["step"]) for st in state.values()), default=0)
-    return {"m": _jax_tree(pipe, moment("exp_avg"), train_weights),
-            "v": _jax_tree(pipe, moment("exp_avg_sq"), train_weights),
+    return {"m": _jax_tree(pipe, moment("exp_avg"), weights),
+            "v": _jax_tree(pipe, moment("exp_avg_sq"), weights),
             "t": np.asarray(t, np.int32)}
 
 

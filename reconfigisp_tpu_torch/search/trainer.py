@@ -120,8 +120,8 @@ class IspTrainer:
         checkpoint.save_training_state(
             state_dir, self.step_idx, epoch=epoch, step=self.step_idx,
             variables=variables,
-            opt_state=convert.adam_state_to_jax(
-                self.optimizer, self.pipeline, self.train_weights),
+            opt_state=convert.adam_state_to_jax(self.optimizer,
+                                                self.pipeline),
             extra={"last_logs": self._last_logs})
 
     def resume(self, state_path: str) -> int:

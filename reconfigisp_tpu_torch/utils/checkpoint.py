@@ -84,8 +84,9 @@ def save_training_state(path_dir: str, iter_label, *, epoch: int, step: int,
 
 
 def load_training_state(path: str) -> dict:
-    with open(path, "rb") as f:
-        return _unwrap(pickle.load(f))
+    """A <iter>.state file's {"epoch", "step", "variables", "opt_state",
+    "extra"}."""
+    return load_network(path)
 
 
 def latest_state(path_dir: str) -> Optional[str]:

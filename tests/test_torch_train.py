@@ -250,9 +250,11 @@ def test_port_resume_continues_as_uninterrupted(runs, case):
 
 def test_adam_state_round_trip(runs):
     """adam_state_to_jax then adam_state_from_jax gives every trained
-    parameter its moments and step back."""
+    parameter its moments and step back; the trees hold the weights, since
+    the optimizer does."""
     tt = runs("flagship_weights")["port"]
-    tree = convert.adam_state_to_jax(tt.optimizer, tt.pipeline, True)
+    tree = convert.adam_state_to_jax(tt.optimizer, tt.pipeline)
+    assert sorted(tree["m"]) == sorted(tree["v"]) == ["logits", "weights"]
     opt = torch.optim.Adam(tt._params)
     convert.adam_state_from_jax(tree, tt.pipeline, opt)
     assert len(opt.state) == len(tt.optimizer.state)

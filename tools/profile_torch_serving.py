@@ -2,17 +2,15 @@
 """Where the time goes in one of the port's SID serving paths, on one GPU.
 
     python3 tools/profile_torch_serving.py [--arch ARCH] [--storage f32|bf16]
-    python3 tools/profile_torch_serving.py --train [--arch ARCH]
 
 ARCH is an architecture string, by default chip_smoke.SLICE2 (median and
 fast NLM); chip_smoke.SLICE1 is the path with the bilateral.  Serves the two
 frames of chip_smoke.py's phase 4 through the same pipeline and serving
 function (its set-up is imported from there, TF32 off), once to warm up and
-once under torch.profiler.  With --train it profiles instead one step-2
-training step of chip_smoke.py's phase 7 (SID_isp's options and batch, the
-kernels on), after two warm-up steps.  Prints the device time by kernel
-group, the device busy share of the call's wall time, and the ten longest
-kernels.  Exits 1 without CUDA or when the profiler records no device time.
+once under torch.profiler.  Prints the device time by kernel group, the
+device busy share of the call's wall time, and the ten longest kernels
+(`profile_device`, which tools/profile_torch_training.py shares).  Exits 1
+without CUDA or when the profiler records no device time.
 """
 
 from __future__ import annotations
@@ -28,12 +26,9 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (BANK, SLICE2, load_pipeline,  # noqa: E402
-                        make_frames, make_serve, make_trainer,
-                        make_training_batch, nvidia_smi, sid_isp_options,
-                        tf32_off)
+from chip_smoke import (SLICE2, load_pipeline, make_frames,  # noqa: E402
+                        make_serve, nvidia_smi, tf32_off)
 from reconfigisp_tpu_torch import precision  # noqa: E402
-from reconfigisp_tpu_torch.utils.checkpoint import load_network  # noqa: E402
 
 # kernel-name fragments -> group, first match wins
 _GROUPS = (("bilateral", "bilateral kernel"), ("median", "median kernel"),
@@ -54,39 +49,20 @@ def _group(name: str) -> str:
     return "elementwise"
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=SLICE2)
-    ap.add_argument("--storage", default="f32", choices=("f32", "bf16"))
-    ap.add_argument("--train", action="store_true",
-                    help="one training step of chip_smoke.py's phase 7")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile: CUDA is not available", file=sys.stderr)
-        return 1
-    tf32_off()
-    dev = torch.device("cuda")
-    if args.train:
-        _, use_proxy, train_opt, n, size = sid_isp_options()
-        trainer = make_trainer(dev, args.arch, use_proxy,
-                               load_network(str(BANK)), train_opt)
-        batch = make_training_batch(dev, n, size)
-        run, warmups, what = (lambda: trainer.train_step(batch)), 2, "steps=1"
-    else:
-        serve = make_serve(load_pipeline(dev, args.arch), dev)
-        frames = make_frames(dev)
-        run, warmups, what = (lambda: serve(frames)), 1, "frames=2"
-
-    with precision.cnn_storage(args.storage):
-        for _ in range(warmups):
-            run()
+def profile_device(run, warmups: int, header: str) -> int:
+    """run() `warmups` times, then once under torch.profiler; prints the
+    device time by kernel group, the busy share of the wall time and the
+    ten longest kernels, after `header`.  Returns the exit code: 1 when the
+    profiler records no device time."""
+    for _ in range(warmups):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     # device events, less the ranges the profiler draws on the device's
     # timeline for annotated host code (Optimizer.step#Adam.step)
@@ -115,9 +91,8 @@ def main() -> int:
             reach = end
     busy_ms = busy_us / 1e3
     print(f"nvidia-smi: {nvidia_smi()}")
-    print(f"device: {torch.cuda.get_device_name(0)} arch={args.arch} "
-          f"storage={args.storage} "
-          f"{what} wall_ms={wall_ms:.3f} "
+    print(f"device: {torch.cuda.get_device_name(0)} {header} "
+          f"wall_ms={wall_ms:.3f} "
           f"kernel_ms={kernel_ms:.3f} busy_ms={busy_ms:.3f} "
           f"busy_share={busy_ms / wall_ms:.4f} "
           f"kernels={len(kernels)}")
@@ -127,6 +102,24 @@ def main() -> int:
     for name, us in sorted(by_name.items(), key=lambda t: -t[1])[:10]:
         print(f"kernel ms={us / 1e3:.3f} {name[:110]}")
     return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=SLICE2)
+    ap.add_argument("--storage", default="f32", choices=("f32", "bf16"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile: CUDA is not available", file=sys.stderr)
+        return 1
+    tf32_off()
+    dev = torch.device("cuda")
+    serve = make_serve(load_pipeline(dev, args.arch), dev)
+    frames = make_frames(dev)
+    with precision.cnn_storage(args.storage):
+        return profile_device(lambda: serve(frames), 1,
+                              f"arch={args.arch} storage={args.storage} "
+                              f"frames=2")
 
 
 if __name__ == "__main__":
