@@ -13,8 +13,8 @@ Phases, one line each:
      (bilateral);
   3. each kernel against its plain PyTorch form on the card: bilateral and
      median at radii 1-7, fast NLM at block radii 1-7 with per-image search
-     radii 1-7; C = 3 and C = 1, a ragged 520x776 frame and phase 7's
-     4x192x192 training batch; the median and the bilateral also on
+     radii 1-7; C = 3 and C = 1, a ragged 520x776 frame, phase 7's
+     4x192x192 training batch and phase 8's 4x48x48x3 search batch; the median and the bilateral also on
      saturated input (runs of exact 0 and 1), the bilateral on constant
      input and at both sigma extremes;
   4. the two serving paths end to end on two 2848x4256 frames (patch 512,
@@ -37,7 +37,19 @@ Phases, one line each:
      forms, the launches counted; the loss must fall and the two runs'
      losses and logits agree.  Then each kernel's gradient through its
      autograd Function against the plain form's: bit for bit where the
-     backward is direct, within STRIP_TOL where it goes by strips.
+     backward is direct (the training batch and the search batch
+     4x48x48x3), within STRIP_TOL where it goes by strips;
+  8. step-1 search: the per-op latency table at 1024x1024 (native and
+     proxy ops), installed; then configs/SID_search.yaml through the port's
+     config.parse (3 sRGB slots of 15 ops, native, batch 4 of 48x48 crops,
+     omega from the bank) on a planted train and val batch made on the card
+     from seed 0: 6 second-order DARTS steps with the kernels, with the
+     plain forms (losses, alphas and theta held within SEARCH_*_TOL) and
+     with the kernels and remat off, the launches counted and steps 3-6
+     timed; the argmax architecture served by Pipeline; 6 first-order steps
+     at configs/planted_search.yaml's rates (the loss must fall); and
+     DartsFtTrainer at configs/planted_search_ft.yaml, 3 steps and one
+     finetune_proxies, whose targets launch the kernels.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -66,12 +78,19 @@ from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.parallel.tiling import tile_positions
-from reconfigisp_tpu_torch.search import IspTrainer
+from reconfigisp_tpu_torch.ops import color, demosaic
+from reconfigisp_tpu_torch.ops.kernels import _vjp
+from reconfigisp_tpu_torch.search import DartsFtTrainer, DartsTrainer, IspTrainer
+from reconfigisp_tpu_torch.supernet import SuperNet
+from reconfigisp_tpu_torch.utils import latency
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
 
 ROOT = Path(__file__).resolve().parent
 BANK = ROOT / "experiments" / "proxies" / "default.ckpt"
 SID_ISP = ROOT / "configs" / "SID_isp.yaml"
+SID_SEARCH = ROOT / "configs" / "SID_search.yaml"
+PLANTED_SEARCH = ROOT / "configs" / "planted_search.yaml"
+PLANTED_SEARCH_FT = ROOT / "configs" / "planted_search_ft.yaml"
 SLICE1 = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"   # bilateral
 SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"   # median, fast NLM
 PATHS = {SLICE1: ("bilateral",), SLICE2: ("median", "fastnlm")}
@@ -104,10 +123,47 @@ TRAIN_LOSS_RTOL = 1e-6
 # order (1e-5 of its largest value).
 STRIP_TOL = 1e-5
 # (case, x shape, radius per image, fast-NLM block radius) of the gradient
-# check: SID_isp's training batch, whose 192 rows take the direct backward,
-# and a 1024-row frame at radius 7, which goes by strips
+# check: SID_isp's training batch and SID_search's search batch, whose 192
+# and 48 rows take the direct backward, and a 1024-row frame at radius 7,
+# which goes by strips
 GRAD_CASES = (("direct", (4, 192, 192, 3), (4, 5, 6, 7), 4),
+              ("search", (4, 48, 48, 3), (1, 3, 5, 7), 4),
               ("strip", (1, 1024, 768, 3), (7,), 7))
+
+# Phase 8.  Steps per search run, and the untimed first steps.
+SEARCH_STEPS, SEARCH_WARMUP = 6, 2
+FT_SEARCH_STEPS = 3          # DartsFtTrainer's steps before finetune_proxies
+LATENCY_SIZE = 1024          # frames of the latency table, batch 1
+# The planted workload of configs/planted_search.yaml, the port's own copy of
+# its constants (reconfigisp_tpu/data/datasets.py:265-270): the camera's BGR
+# cast, the planted wb_manual and gamma params in [0, 1], the noise.
+PLANTED_CAST = (0.8, 1.0, 0.6)
+PLANTED_WB01 = tuple(1.0 / c / 5.0 for c in PLANTED_CAST)
+PLANTED_GAMMA01 = 0.5 - math.log(2.2) / (2.0 * math.log(3.0))
+PLANTED_SHOT, PLANTED_READ = 0.08, 0.02
+# Kernels vs plain forms over 6 second-order steps, written before the first
+# run.  In each forward the kernels differ from the plain forms by rounding
+# order, at most 2e-5 (bilateral) and 5e-5 (fast NLM) a value, 0 (median),
+# in candidates weighted 1/15 in each of 3 slots: an output error of at most
+# about 1e-5, of either sign from value to value.
+#  * Losses, relative: a mean over n = 27,648 squared residuals r (|r| about
+#    0.3, loss about 0.05) moves by about 2 |r| 1e-5 / sqrt(n) = 4e-8, under
+#    1e-6 of the loss; SEARCH_LOSS_RTOL leaves 10x.
+#  * Alphas: Adam moves an alpha by lr m_hat / (sqrt(v_hat) + 1e-8), which a
+#    relative error e of the gradient moves by about lr e; the alpha
+#    gradients' e is about 1e-4 (the output error over values of 0.1-1; the
+#    Hessian term's probes, 0.01 apart in theta, difference two passes of
+#    the same error, and enter times lr_meta / (2 eps) <= 5e-3), so 6 steps at
+#    lr 1e-4 move an alpha by 6e-8; SEARCH_ALPHA_TOL leaves 100x.  A
+#    component whose gradient lies within its own error of zero could flip
+#    Adam's sign and part by up to 2 lr a step: that would fail the check
+#    and be looked into, not tolerated.
+#  * Theta: SGD moves a logit by lr buf, buf a momentum sum of gradients of
+#    at most about 1 with e about 1e-4: 6 x 1e-4 x 1e-4 = 6e-8;
+#    SEARCH_THETA_TOL leaves 16x.
+SEARCH_LOSS_RTOL = 1e-5
+SEARCH_ALPHA_TOL = 1e-5
+SEARCH_THETA_TOL = 1e-6
 
 # name -> (module, plain form, params per image, tolerance against the plain
 # form, TPU kernel it replaces).  Tolerances: bilateral takes one exp2 per
@@ -147,6 +203,15 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 def line(phase: str, **fields) -> None:
     print(f"{phase}: " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def _zero_counts() -> None:
+    for mod, *_ in KERNELS.values():
+        mod.launches = 0
+
+
+def _counts() -> dict:
+    return {name: mod.launches for name, (mod, *_) in KERNELS.items()}
 
 
 def event_ms(fn, reps: int) -> float:
@@ -488,6 +553,17 @@ def _kernel_cases():
         for b in r17:
             yield ("fastnlm", f"train_4x192x192x{c}_b{b}_s1,3,5,7", shape,
                    [1, 3, 5, 7], b)
+    # phase 8's search batch, 4 x 48 x 48 x 3 (the sRGB slots' input): every
+    # radius, and every fast-NLM block radius with every search radius
+    shape = (4, 48, 48, 3)
+    for radii in ((1, 2, 3, 4), (4, 5, 6, 7)):
+        yield ("bilateral", f"search_4x48x48x3_r{radii[0]}-{radii[-1]}",
+               shape, list(radii), 4)
+        for b in r17:
+            yield ("fastnlm", f"search_4x48x48x3_b{b}_s{radii[0]}-{radii[-1]}",
+                   shape, list(radii), b)
+    for r in r17:
+        yield "median", f"search_4x48x48x3_r{r}", shape, [r] * 4, 4
 
 
 def phase_kernels(dev) -> dict:
@@ -516,15 +592,19 @@ def phase_kernels(dev) -> dict:
     return worst
 
 
+def _plain_spec(spec):
+    """The op with its native form on the plain form where it is a kernel
+    op (a native tuning target follows it)."""
+    if spec.name not in KERNELS:
+        return spec
+    plain = KERNELS[spec.name][1]
+    return dataclasses.replace(spec,
+                               apply=lambda x, p, w, plain=plain: plain(x, p))
+
+
 def _with_plain_kernels(pipe):
     """The pipeline's steps with every kernel op on its plain form."""
-    steps = list(pipe.steps)
-    for i, (name, spec) in enumerate(steps):
-        if spec.name in KERNELS:
-            plain = KERNELS[spec.name][1]
-            steps[i] = (name, dataclasses.replace(
-                spec, apply=lambda x, p, w, plain=plain: plain(x, p)))
-    return steps
+    return [(name, _plain_spec(spec)) for name, spec in pipe.steps]
 
 
 def phase_serving(dev, arch, pipe, frames) -> dict:
@@ -535,11 +615,10 @@ def phase_serving(dev, arch, pipe, frames) -> dict:
                * len(tile_positions(FRAME[1], PATCH, STRIDE)))
     chunks = math.ceil(n_tiles / CHUNK)
 
-    for mod, *_ in KERNELS.values():
-        mod.launches = 0
+    _zero_counts()
     y = serve(frames)
     torch.cuda.synchronize()
-    launches = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
+    launches = _counts()
 
     if tuple(y.shape) != (frames.shape[0], *FRAME, 3):
         raise AssertionError(f"output shape {tuple(y.shape)}")
@@ -704,8 +783,7 @@ def _train_run(trainer: IspTrainer, batch: dict) -> dict:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    for mod, *_ in KERNELS.values():
-        mod.launches = 0
+    _zero_counts()
     losses = []
     for step in range(TRAIN_STEPS):
         if step == TRAIN_WARMUP:
@@ -713,7 +791,7 @@ def _train_run(trainer: IspTrainer, batch: dict) -> dict:
         losses.append(trainer.train_step(batch)["loss"])
     end.record()
     torch.cuda.synchronize()
-    launches = {name: mod.launches for name, (mod, *_) in KERNELS.items()}
+    launches = _counts()
     return {"losses": losses, "before": before,
             "after": trainer.eval_loss(batch), "launches": launches,
             "ms": start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP),
@@ -803,13 +881,225 @@ def phase_gradients(dev) -> None:
                  shape=shape, radius=max(radii),
                  max_abs_diff_x=f"{dx:.3e}", max_abs_diff_params=f"{dp:.3e}",
                  params_grad_max=f"{scale:.3e}")
-            if case == "direct":
+            if shape[1] <= _vjp.DIRECT_ROWS:
                 same = torch.equal(gx, wx) and (wp is None
                                                 or torch.equal(gp, wp))
                 if not same:
-                    raise AssertionError(f"{name} direct: not bit-identical")
+                    raise AssertionError(f"{name} {case}: not bit-identical")
             elif not (dx <= STRIP_TOL and dp <= STRIP_TOL * max(1.0, scale)):
                 raise AssertionError(f"{name} strip: {dx}, {dp} > {STRIP_TOL}")
+
+
+def phase_latency(dev) -> dict:
+    """The per-op latency table (ms/MP) at LATENCY_SIZE^2, batch 1, native
+    and with proxies; the native one is installed into the registry."""
+    tables = {}
+    for use_proxies in (False, True):
+        table = latency.calibrate(size=LATENCY_SIZE, batch=1,
+                                  use_proxies=use_proxies, device=dev)
+        bad = {k: v for k, v in table.items()
+               if not (math.isfinite(v) and v > 0)}
+        if bad:
+            raise AssertionError(f"latency table: {bad}")
+        mode = "proxy" if use_proxies else "native"
+        for name, ms in table.items():
+            line("phase 8 latency", op=name, mode=mode,
+                 size=f"{LATENCY_SIZE}x{LATENCY_SIZE}",
+                 ms_per_mp=f"{ms:.6f}")
+        tables[mode] = table
+    latency.install(tables["native"])
+    return tables
+
+
+def make_planted_batch(dev, n: int, size: int, gen) -> dict:
+    """n planted crops: a smooth BGR scene under the camera's cast, its
+    clean RGGB mosaic, the target from the clean mosaic through Malvar
+    demosaic, wb_manual and gamma at the planted params, and as input the
+    mosaic with shot and read noise (configs/planted_search.yaml)."""
+    coarse = torch.rand((n, 3, size // 8, size // 8), generator=gen,
+                        device=dev)
+    scene = F.interpolate(coarse, size=(size, size), mode="bilinear",
+                          align_corners=False).permute(0, 2, 3, 1)
+    cast = torch.tensor(PLANTED_CAST, device=dev)
+    lit = torch.clamp(scene * cast, 0.0, 1.0)
+    clean = torch.empty((n, size, size, 1), device=dev)
+    clean[:, 0::2, 0::2, 0] = lit[:, 0::2, 0::2, 2]   # R
+    clean[:, 0::2, 1::2, 0] = lit[:, 0::2, 1::2, 1]   # G
+    clean[:, 1::2, 0::2, 0] = lit[:, 1::2, 0::2, 1]   # G
+    clean[:, 1::2, 1::2, 0] = lit[:, 1::2, 1::2, 0]   # B
+    wb = torch.tensor([PLANTED_WB01], device=dev).expand(n, 3)
+    g = torch.tensor([[PLANTED_GAMMA01]], device=dev).expand(n, 1)
+    gt = color.gamma(color.wb_manual(demosaic.demosaic_malvar(clean), wb), g)
+    sigma = torch.sqrt(PLANTED_SHOT ** 2 * clean + PLANTED_READ ** 2)
+    noise = torch.randn(clean.shape, generator=gen, device=dev)
+    return {"noisy": torch.clamp(clean + sigma * noise, 0.0, 1.0),
+            "gt": torch.clamp(gt, 0.0, 1.0)}
+
+
+def search_options(path: Path):
+    """A search option file through the port's config.parse, its paths
+    under a temporary root."""
+    with tempfile.TemporaryDirectory() as root:
+        return config.parse(str(path), root=root)
+
+
+def make_search_trainer(dev, bank, opt, *, plain=False, remat=None,
+                        order=None, ft=False):
+    """A DartsTrainer (DartsFtTrainer with `ft`) on the supernet the options
+    describe, omega from the bank, its kernel ops on their plain forms if
+    `plain`."""
+    kw = config.supernet_kwargs(opt)
+    if remat is not None:
+        kw["remat"] = remat
+    net = SuperNet(**kw, device=dev)
+    if plain:
+        net.slots = [(slot, [_plain_spec(s) for s in ops])
+                     for slot, ops in net.slots]
+    train_opt = dict(opt["train"])
+    if order is not None:
+        train_opt["darts_order"] = order
+    trainer = (DartsFtTrainer(net, train_opt, opt["proxy_ft_params"] or {})
+               if ft else DartsTrainer(net, train_opt))
+    installed = trainer.load_pretrained(bank)
+    missing = sorted(set(trainer.variables["omega"]) - set(installed))
+    if missing:
+        raise AssertionError(f"the bank lacks {missing}")
+    return trainer
+
+
+def _search_run(trainer, train, val, steps: int = SEARCH_STEPS,
+                record: bool = False) -> dict:
+    """`steps` search steps, with every count set to 0 just before the
+    steps and read just after; steps after SEARCH_WARMUP timed.  With
+    `record`, each step's intermediates go into the ft trainer's memory, as
+    the JAX package's run_training records them."""
+    dev = trainer.net.device
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    logs = []
+    for step in range(steps):
+        if step == SEARCH_WARMUP:
+            start.record()
+        logs.append(trainer.search_step(train, val))
+        if record:
+            trainer.record_intermediates()
+    end.record()
+    torch.cuda.synchronize()
+    return {"logs": logs, "launches": _counts(),
+            "ms": start.elapsed_time(end) / (steps - SEARCH_WARMUP),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def _search_line(what: str, run: dict, **fields) -> None:
+    losses = [lg["loss"] for lg in run["logs"]]
+    line("phase 8 search", run=what, **fields,
+         ms_per_step=f"{run['ms']:.3f}",
+         peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+         loss=f"{losses[0]:.6f}->{losses[-1]:.6f}",
+         val_loss=f"{run['logs'][0]['val_loss']:.6f}->"
+                  f"{run['logs'][-1]['val_loss']:.6f}",
+         launches=json.dumps(run["launches"]).replace(" ", ""))
+    if not all(math.isfinite(v) for lg in run["logs"] for v in lg.values()):
+        raise AssertionError(f"{what}: logs {run['logs']}")
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    if isinstance(a, dict):
+        return max((_max_diff(a[k], b[k]) for k in a), default=0.0)
+    return float((a - b).abs().max())
+
+
+def phase_search(dev, bank) -> dict:
+    """Step-1 search at SID_search's geometry; returns the kernels' launches
+    in the second-order run with the kernels and remat on (the default)."""
+    opt = search_options(SID_SEARCH)
+    data = opt["datasets"]["train"]
+    n, size = data["batch_size"], data["data_size"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    train = make_planted_batch(dev, n, size, gen)
+    val = make_planted_batch(dev, n, size, gen)
+
+    runs = {}
+    for what, kw in (("order2_kernels", {}), ("order2_plain", {"plain": True}),
+                     ("order2_kernels_remat_off", {"remat": False})):
+        trainer = make_search_trainer(dev, bank, opt, **kw)
+        if what == "order2_kernels":
+            _, aux = trainer.net(trainer.variables, train["noisy"],
+                                 return_aux=True)
+            line("phase 8 supernet", slots=len(trainer.net.slots),
+                 ops_per_srgb_slot=len(trainer.net.slots[-1][1]),
+                 remat=trainer.net.remat, batch=tuple(train["noisy"].shape),
+                 expected_latency_ms_per_mp=f"{float(aux['latency']):.6f}")
+        run = _search_run(trainer, train, val)
+        run["trainer"] = trainer
+        runs[what] = run
+        _search_line(what, run, remat=trainer.net.remat)
+        expected_zero = what == "order2_plain"
+        for name, count in run["launches"].items():
+            if (count == 0) != expected_zero:
+                raise AssertionError(f"{what}: launches {run['launches']}")
+
+    kern, ref = runs["order2_kernels"], runs["order2_plain"]
+    loss_diff = max(abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(kern["logs"], ref["logs"])
+                    for k in ("loss", "val_loss"))
+    kv, rv = kern["trainer"].variables, ref["trainer"].variables
+    alpha_diff = _max_diff(kv["alphas"], rv["alphas"])
+    theta_diff = _max_diff(kv["theta"], rv["theta"])
+    start = make_search_trainer(dev, bank, opt).variables
+    line("phase 8 kernels vs plain", steps=SEARCH_STEPS,
+         max_loss_rel_diff=f"{loss_diff:.3e}", loss_rtol=SEARCH_LOSS_RTOL,
+         max_alpha_diff=f"{alpha_diff:.3e}", alpha_tol=SEARCH_ALPHA_TOL,
+         max_theta_diff=f"{theta_diff:.3e}", theta_tol=SEARCH_THETA_TOL,
+         max_alpha_move=f"{_max_diff(kv['alphas'], start['alphas']):.3e}",
+         max_theta_move=f"{_max_diff(kv['theta'], start['theta']):.3e}")
+    if not (loss_diff <= SEARCH_LOSS_RTOL and alpha_diff <= SEARCH_ALPHA_TOL
+            and theta_diff <= SEARCH_THETA_TOL):
+        raise AssertionError("search: kernels vs plain forms part")
+
+    arch = kern["trainer"].architecture()
+    pipe = load_pipeline(dev, arch, bank=bank)
+    with torch.inference_mode():
+        y = pipe(val["noisy"])
+    if tuple(y.shape) != (n, size, size, 3) or not bool(
+            torch.isfinite(y).all()):
+        raise AssertionError(f"{arch}: output {tuple(y.shape)}")
+    line("phase 8 architecture", arch=arch,
+         pruned=kern["trainer"].pruned_paths(val["noisy"]).tolist(),
+         out=tuple(y.shape), range=f"{float(y.min()):.4f}..{float(y.max()):.4f}")
+
+    planted = search_options(PLANTED_SEARCH)
+    trainer = make_search_trainer(dev, bank, planted, order=1)
+    run = _search_run(trainer, train, val)
+    _search_line("order1_planted_rates", run, remat=trainer.net.remat)
+    if not run["logs"][-1]["loss"] < run["logs"][0]["loss"]:
+        raise AssertionError(f"order 1: loss {run['logs']} did not fall")
+
+    planted_ft = search_options(PLANTED_SEARCH_FT)
+    trainer = make_search_trainer(dev, bank, planted_ft, ft=True)
+    run = _search_run(trainer, train, val, FT_SEARCH_STEPS, record=True)
+    _search_line("ft_planted", run, remat=trainer.net.remat,
+                 use_proxies=trainer.net.use_proxies)
+    _zero_counts()
+    ft_logs = trainer.finetune_proxies()
+    torch.cuda.synchronize()
+    ft_launches = _counts()
+    line("phase 8 finetune_proxies", memory=len(trainer.ft_data),
+         ft_steps=trainer.ft_steps,
+         losses=json.dumps({k: round(v, 8) for k, v in ft_logs.items()})
+         .replace(" ", ""),
+         target_launches=json.dumps(ft_launches).replace(" ", ""))
+    if sorted(ft_logs) != sorted(f"ft_{s.name}" for s in trainer.ft_ops) \
+            or not all(math.isfinite(v) for v in ft_logs.values()):
+        raise AssertionError(f"finetune_proxies: {ft_logs}")
+    expected = {name: trainer.ft_steps for name in KERNELS}
+    if ft_launches != expected:
+        raise AssertionError(f"tuning targets: launches {ft_launches} "
+                             f"!= {expected}")
+    return kern["launches"]
 
 
 def main() -> int:
@@ -835,12 +1125,15 @@ def main() -> int:
     del frames, pipes
     train_launches = phase_training(dev, bank)
     phase_gradients(dev)
+    phase_latency(dev)
+    search_launches = phase_search(dev, bank)
 
     kernels = [{
         "name": name, "route": "cuda",
         "source": f"reconfigisp_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "launches": launches[name],
         "train_launches": train_launches[name],
+        "search_launches": search_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

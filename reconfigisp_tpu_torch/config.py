@@ -106,3 +106,21 @@ def network_uses_proxy(net_opt: dict) -> bool:
     if net_opt.get("use_proxy") is not None:
         return bool(net_opt["use_proxy"])
     return net_opt.get("which_model_G") == "IspUniversal"
+
+
+def supernet_kwargs(opt: dict) -> dict:
+    """SuperNet's arguments from a search option file, as the JAX package's
+    run_training reads them (reconfigisp_tpu/search/trainer.py:690-709):
+    n_step (3), prune_threshold (0.2), use_proxies (forced by model
+    darts_ft), srgb_count or the reference's n_modules (15), remat (True)."""
+    from reconfigisp_tpu_torch.registry import SUPERNET_SRGB_COUNT
+    net_opt = opt["network_G"] or {}
+    remat = net_opt.get("remat")
+    return {"n_step": net_opt.get("n_step", 3) or 3,
+            "threshold": net_opt.get("prune_threshold", 0.2) or 0.2,
+            "use_proxies": (opt.get("model") == "darts_ft"
+                            or bool(net_opt.get("use_proxies"))),
+            "srgb_count": (net_opt.get("srgb_count")
+                           or net_opt.get("n_modules")
+                           or SUPERNET_SRGB_COUNT),
+            "remat": True if remat is None else bool(remat)}

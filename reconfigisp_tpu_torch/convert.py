@@ -18,6 +18,13 @@ per-parameter exp_avg, exp_avg_sq and step to and from the JAX package's
 {"m", "v", "t"} trees (reconfigisp_tpu/utils/optim.py:28-31), whose m and v
 have the trained part of the state's layout: {"logits"}, and {"weights"}
 too where the weights are trained.
+
+For the search, `supernet_variables_from_jax` / `supernet_variables_to_jax`
+carry the supernet's {"alphas", "theta", "omega"} (omega's modules through
+weights_from_jax / weights_to_jax), and `darts_opt_state_from_jax` /
+`darts_opt_state_to_jax` the DARTS step's {"momentum", "adam_m", "adam_v",
+"adam_t"} (reconfigisp_tpu/search/darts.py:63-71), which the port holds in
+the same layout with tensors as leaves.
 """
 
 from __future__ import annotations
@@ -157,3 +164,58 @@ def state_from_bank(bank: dict, pipe) -> dict:
     the bank lacks one."""
     return {"weights": {name: weights_from_jax(bank[name])
                         for name in pipe.weights}}
+
+
+def _tensors(tree, device):
+    """Nested dicts of numpy arrays -> the same dicts of float32 tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree, np.float32).copy()).to(device)
+
+
+def _arrays(tree):
+    """Nested dicts of tensors -> the same dicts of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _arrays(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy().copy()
+
+
+def supernet_variables_from_jax(np_vars: dict, net) -> dict:
+    """A JAX supernet's variables (numpy) -> the port's, for SuperNet `net`:
+    alphas and theta as tensors on its device, omega as frozen modules of
+    the kind `net` runs each op with, holding the JAX weights."""
+    specs = {spec.name: spec for _, ops in net.slots for spec in ops}
+    omega = {}
+    for name, tree in np_vars["omega"].items():
+        module = specs[name].get_init(net.use_proxies)(torch.Generator())
+        module.load_state_dict(weights_from_jax(tree))
+        omega[name] = module.to(net.device).requires_grad_(False)
+    return {"alphas": _tensors(np_vars["alphas"], net.device),
+            "theta": _tensors(np_vars["theta"], net.device),
+            "omega": omega}
+
+
+def supernet_variables_to_jax(variables: dict) -> dict:
+    """The port's supernet variables -> the JAX layout, in numpy."""
+    return {"alphas": _arrays(variables["alphas"]),
+            "theta": _arrays(variables["theta"]),
+            "omega": {name: weights_to_jax(dict(mod.named_parameters()))
+                      for name, mod in variables["omega"].items()}}
+
+
+def darts_opt_state_from_jax(np_state: dict, device) -> dict:
+    """{"momentum", "adam_m", "adam_v", "adam_t"} (numpy) -> tensors on
+    `device`; adam_t stays an integer count."""
+    return {"momentum": _tensors(np_state["momentum"], device),
+            "adam_m": _tensors(np_state["adam_m"], device),
+            "adam_v": _tensors(np_state["adam_v"], device),
+            "adam_t": torch.tensor(int(np_state["adam_t"]), dtype=torch.int32,
+                                   device=device)}
+
+
+def darts_opt_state_to_jax(state: dict) -> dict:
+    """The inverse of darts_opt_state_from_jax."""
+    return {"momentum": _arrays(state["momentum"]),
+            "adam_m": _arrays(state["adam_m"]),
+            "adam_v": _arrays(state["adam_v"]),
+            "adam_t": np.asarray(int(state["adam_t"]), np.int32)}

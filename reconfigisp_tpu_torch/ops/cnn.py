@@ -105,6 +105,40 @@ def apply_srcnn_res(net: SRCNNRes, x: torch.Tensor, params) -> torch.Tensor:
     return x + net(_nchw(feat)).permute(0, 2, 3, 1)
 
 
+def _grouped_conv(x: torch.Tensor, convs, relu: bool) -> torch.Tensor:
+    """K same-shape convs on K channel groups of x as one grouped conv:
+    weights and biases joined on the output channels, `groups` = K."""
+    dt = cnn_storage_dtype()
+    w = torch.cat([c.weight for c in convs]).to(dt)
+    b = torch.cat([c.bias for c in convs]).to(dt)
+    y = F.conv2d(x.to(dt), w, b, padding=convs[0].padding, groups=len(convs))
+    return F.relu(y) if relu else y
+
+
+def apply_srcnn_res_bank(nets, x: torch.Tensor,
+                         params: torch.Tensor) -> torch.Tensor:
+    """K SRCNN-Res proxies on one input, as one grouped conv stack.
+
+    nets: K SRCNNRes; x (N,H,W,3) BGR; params (K, N, MAX_PROXY_PARAMS),
+    each proxy's zero-padded.  -> (K, N, H, W, 3), slice k equal to
+    apply_srcnn_res(nets[k], x, params[k]).  The counterpart of the JAX
+    supernet's vmap over the stacked weights (reconfigisp_tpu/supernet.py:
+    146-160): the K stacks' convs run as one conv per layer."""
+    k = len(nets)
+    n, h, w, _ = x.shape
+    stats = torch.cat([torch.amin(x, dim=(1, 2)), torch.mean(x, dim=(1, 2)),
+                       torch.amax(x, dim=(1, 2))], dim=1)
+    cond = torch.cat([stats.expand(k, n, stats.shape[1]), params], dim=2)
+    feat = torch.cat([x.permute(0, 3, 1, 2).expand(k, n, 3, h, w),
+                      cond[..., None, None].expand(*cond.shape, h, w)], dim=2)
+    feat = feat.transpose(0, 1).reshape(n, k * feat.shape[2], h, w)
+    y = _grouped_conv(feat, [net.conv1 for net in nets], relu=True)
+    y = _grouped_conv(y, [net.conv2 for net in nets], relu=True)
+    y = _grouped_conv(y, [net.conv3 for net in nets], relu=False)
+    y = y.to(x.dtype).reshape(n, k, 3, h, w).permute(1, 0, 3, 4, 2)
+    return x + y
+
+
 def apply_srcnn_demosaic(net: SRCNNDemosaic, x: torch.Tensor) -> torch.Tensor:
     """x (N,H,W,1) Bayer RGGB -> (N,H,W,3): RGGB pack, net, pixel shuffle."""
     y = net(_nchw(bayer_to_rggb(x)))

@@ -83,18 +83,11 @@ class Pipeline(nn.Module):
             elif spec.n_params:
                 self.logits[step_name] = nn.Parameter(
                     torch.tensor(spec.init_logits, dtype=torch.float32))
-            init = self._weights_init(spec)
+            init = spec.get_init(use_proxy)
             if init is not None and spec.name not in self.weights:
                 self.weights[spec.name] = init(generator)
         self.device = dev
         self.to(dev)
-
-    def _weights_init(self, spec: OpSpec):
-        """The constructor of the module the step runs with, or None: the
-        proxy's where the step runs its proxy, else the native one."""
-        if (self.use_proxy or spec.proxy_only) and spec.proxy_init is not None:
-            return spec.proxy_init
-        return spec.init_weights
 
     @torch.no_grad()
     def load_state(self, state: dict) -> "Pipeline":
@@ -108,7 +101,7 @@ class Pipeline(nn.Module):
         specs = dict(self.steps)
         for name, sd in state.get("weights", {}).items():
             if name not in self.weights and name in specs:
-                init = self._weights_init(specs[name])
+                init = specs[name].get_init(self.use_proxy)
                 if init is None:
                     raise KeyError(f"step {name!r} runs no learned module")
                 self.weights[name] = init(torch.Generator()).to(self.device)
@@ -119,8 +112,8 @@ class Pipeline(nn.Module):
         """x: (N, H, W, 1) Bayer (or partial-domain input) -> (N, H, W, 3) BGR.
 
         With return_intermediates, returns (y, {step_name: output},
-        latency_ms_per_mp), the latency being None while any op's latency
-        is not yet measured on the H100 (registry.LATENCY_MS_PER_MP).
+        latency_ms_per_mp), the sum of the steps' entries in
+        registry.LATENCY_MS_PER_MP (None if one has none).
         """
         n = x.shape[0]
         mids = {}

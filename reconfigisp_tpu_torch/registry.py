@@ -21,15 +21,38 @@ import torch
 from reconfigisp_tpu_torch.ops import (
     cnn, color, conditional, demosaic, denoise, tone)
 
-# Per-op latency in ms per megapixel on the H100, for the latency-aware loss.
-# Every entry is None: not yet measured on the H100 (the JAX package's table
-# was measured on a TPU and does not carry over).
-LATENCY_MS_PER_MP = {name: None for name in (
-    "skip", "gamma", "grayworld", "wbmanual", "whiteworld", "wbquadratic",
-    "gtmmanual", "reinhard", "crysisengine", "filmic", "bilateral", "median",
-    "fastnlm", "nearest", "bilinear", "laplacian", "demosaicnet",
-    "path_bayer", "path_bgr", "bm3d", "conditional_gamma",
-    "conditional_wb_manual", "conditional_wb_quadratic")}
+# Per-op latency in ms per megapixel, for the latency-aware loss and the
+# supernet's expected latency: measured by utils/latency.calibrate(size=1024,
+# batch=1) on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, native ops
+# (bm3d is its proxy), kernels on, TF32 off (chip_smoke.py phase 8).
+# utils/latency.install replaces it with a table measured elsewhere; a None
+# entry leaves the latency undefined (the JAX package's table was measured
+# on a TPU and does not carry over).
+LATENCY_MS_PER_MP = {
+    "skip": 0.008270,
+    "gamma": 0.102661,
+    "grayworld": 0.083862,
+    "wbmanual": 0.039001,
+    "whiteworld": 0.443237,
+    "wbquadratic": 0.605621,
+    "gtmmanual": 0.211456,
+    "reinhard": 0.447632,
+    "crysisengine": 0.074768,
+    "filmic": 0.228699,
+    "bilateral": 0.112854,
+    "median": 0.135864,
+    "fastnlm": 0.371185,
+    "nearest": 0.757782,
+    "bilinear": 0.564484,
+    "laplacian": 1.016144,
+    "demosaicnet": 1.219208,
+    "path_bayer": 7.613251,
+    "path_bgr": 29.717559,
+    "bm3d": 14.210419,
+    "conditional_gamma": 0.459595,
+    "conditional_wb_manual": 0.355438,
+    "conditional_wb_quadratic": 1.595093,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +67,9 @@ class OpSpec:
     proxy_init: Optional[Callable] = None    # torch.Generator -> nn.Module
     conditional: bool = False        # raw flat params, no sigmoid/repeat
     init_params: Optional[Callable] = None   # generator -> logits (conditional)
+    ft_target: bool = False          # its proxy is tuned online (DartsFtTrainer)
+    ft_target_apply: Optional[Callable] = None  # the proxy's target where it
+                                                # is not `apply` (bm3d)
 
     @property
     def latency(self) -> Optional[float]:
@@ -52,6 +78,20 @@ class OpSpec:
     @property
     def proxy_only(self) -> bool:
         return self.apply is None
+
+    def ft_target_fn(self) -> Optional[Callable]:
+        """The function the proxy imitates in proxy tuning: the native form,
+        or `ft_target_apply` where there is none (bm3d)."""
+        if self.ft_target_apply is not None:
+            return self.ft_target_apply
+        return self.apply
+
+    def get_init(self, use_proxy: bool) -> Optional[Callable]:
+        """The constructor of the module that get_apply(use_proxy) runs
+        with, or None."""
+        if (use_proxy or self.apply is None) and self.proxy_init is not None:
+            return self.proxy_init
+        return self.init_weights
 
     def get_apply(self, use_proxy: bool) -> Callable:
         """The proxy where asked for (or where no native form exists) and
@@ -67,8 +107,10 @@ _WBQ_INIT = (0, 0, 0, 0, 0, 0, 0.406, 0, 0, 0,
 
 
 def _srcnn_proxy(n_params: int) -> dict:
+    """An SRCNN-Res proxy, tuned online against the op's target."""
     return {"proxy_apply": lambda x, p, w: cnn.apply_srcnn_res(w, x, p),
-            "proxy_init": lambda g: cnn.SRCNNRes(n_params, g)}
+            "proxy_init": lambda g: cnn.SRCNNRes(n_params, g),
+            "ft_target": True}
 
 
 _DEMOSAIC_PROXY = {
@@ -133,10 +175,10 @@ def _build_registry():
         init_weights=cnn.path14_bgr)
     add("srgb", 13, "wbquadratic", 30, _WBQ_INIT, color.wb_quadratic)
     add("srgb", 14, "gtmmanual", 3, (-1.099, 0., 1.099), tone.gtm_manual)
-    # BM3D: proxy-only, as in the JAX package (dct_denoise, the proxy's
-    # training target, is not ported yet)
+    # BM3D: proxy-only, as in the JAX package; its proxy's training target is
+    # the transform-domain stand-in dct_denoise
     add("srgb", 15, "bm3d", 5, (-1.946, 1.099, -1.099, -1.099, 2.708),
-        **_srcnn_proxy(5))
+        ft_target_apply=denoise.dct_denoise, **_srcnn_proxy(5))
     # conditional ops: a flat FC-net parameter vector (418/454/940 values)
     for idx, name, n_glob, base, apply in (
             (16, "conditional_gamma", 1, (0.,),
@@ -170,3 +212,12 @@ def pool(domain: str):
     return [spec for _, spec in sorted(_REGISTRY[domain].values(),
                                        key=lambda t: t[0])]
 
+
+
+def op_index(domain: str, name: str) -> int:
+    return _REGISTRY[domain][name][0]
+
+
+# The supernet's sRGB slots hold ops 1..15 (reference super_prune...py:101-118);
+# the conditional ops 16-18 serve fixed pipelines only.
+SUPERNET_SRGB_COUNT = 15

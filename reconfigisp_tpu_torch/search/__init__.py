@@ -1,6 +1,7 @@
-"""Training and search.  Ported so far: IspTrainer, step-2 training of a
-fixed pipeline."""
+"""Training and search: IspTrainer (step 2, a fixed pipeline) and the
+DARTS search trainers (step 1, the supernet)."""
 
-from reconfigisp_tpu_torch.search.trainer import IspTrainer
+from reconfigisp_tpu_torch.search.trainer import (
+    DartsFtTrainer, DartsTrainer, IspTrainer)
 
-__all__ = ["IspTrainer"]
+__all__ = ["DartsFtTrainer", "DartsTrainer", "IspTrainer"]

@@ -22,13 +22,12 @@ def l2(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def latency_loss(pred, target, latency, target_latency, w, fidelity_loss=l2):
     """fidelity * (latency / target)^w -> (loss, latency_term).  Raises
-    while the latency is None: the port's per-op latency table is not
-    measured on the H100 yet (registry.LATENCY_MS_PER_MP)."""
+    when the latency is None: an op of the network has no entry in the
+    per-op latency table (registry.LATENCY_MS_PER_MP)."""
     if latency is None:
         raise ValueError(
-            "the latency loss needs the pipeline's latency, which is None "
-            "until the per-op latency table is measured on the H100 "
-            "(registry.LATENCY_MS_PER_MP; ROADMAP.md)")
+            "the latency loss needs the network's latency, which is None "
+            "while an op has no entry in registry.LATENCY_MS_PER_MP")
     fid = fidelity_loss(pred, target)
     term = (latency / target_latency) ** w
     return fid * term, term

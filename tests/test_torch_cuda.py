@@ -1,12 +1,15 @@
 """The bilateral, median and fast-NLM CUDA kernels against their plain
-PyTorch forms, on the card, forward and backward, and a few steps of
-step-2 training through them.
+PyTorch forms, on the card, forward and backward, a few steps of step-2
+training through them, and the supernet and a second-order DARTS step
+through them.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -20,6 +23,10 @@ from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.search import IspTrainer
+from reconfigisp_tpu_torch.search.darts import (
+    DartsConfig, init_darts_opt_state, make_darts_step)
+from reconfigisp_tpu_torch.supernet import SuperNet
+from reconfigisp_tpu_torch.utils import losses
 
 pytestmark = pytest.mark.cuda
 
@@ -204,8 +211,9 @@ def _grad_rows(name, n):
     return [[v, 0.05 + 0.2 * i, 0.1 + 0.15 * i] for i, v in enumerate(r)]
 
 
-@pytest.mark.parametrize("shape", [(3, 48, 40, 3), (2, 700, 24, 1)],
-                         ids=["direct", "strip"])
+@pytest.mark.parametrize("shape", [(3, 48, 40, 3), (4, 48, 48, 3),
+                                   (2, 700, 24, 1)],
+                         ids=["direct", "search", "strip"])
 @pytest.mark.parametrize("name", ["bilateral", "median", "fastnlm"])
 def test_op_gradient_on_cuda_is_the_plain_forms(cuda, name, shape):
     """An input that requires grad launches the kernel, and its gradient for
@@ -267,3 +275,81 @@ def test_isp_trainer_on_cuda_follows_the_cpu(cuda):
     for name, value in convert.state_to_jax(cpu.pipeline)["logits"].items():
         np.testing.assert_allclose(got_logits[name], value, atol=1e-4,
                                    err_msg=name)
+
+
+def _supernets(device):
+    """SID_search's native slots (15 sRGB ops) at n_step 1 on the card: one
+    net with the kernels, one with their plain forms, the same variables."""
+    nets = []
+    for plain in (False, True):
+        net = SuperNet(1, 0.2, srgb_count=15, device=device)
+        if plain:
+            net.slots = [(slot, [dataclasses.replace(
+                s, apply=lambda x, p, w, f=_PLAIN[s.name]: f(x, p))
+                if s.name in _PLAIN else s for s in ops])
+                for slot, ops in net.slots]
+        nets.append(net)
+    return nets, nets[0].init(torch.Generator().manual_seed(0))
+
+
+def _search_batch(device):
+    rng = np.random.default_rng(33)
+    mk = lambda c: torch.from_numpy(rng.uniform(
+        0.05, 0.95, (4, 48, 48, c)).astype(np.float32)).to(device)
+    return {"img": mk(1), "gt": mk(3), "val_img": mk(1), "val_gt": mk(3)}
+
+
+def test_supernet_on_cuda_kernels_vs_plain(cuda):
+    """The supernet's output with the kernels in its slot against the plain
+    forms, TF32 off: within 1e-5 (the kernels' 2e-5 and 5e-5 in candidates
+    weighted 1/15), each kernel launched once."""
+    (net, plain), v = _supernets(cuda)
+    x = _search_batch(cuda)["img"]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        kb.launches = km.launches = kf.launches = 0
+        with torch.no_grad():
+            got, want = net(v, x), plain(v, x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert (kb.launches, km.launches, kf.launches) == (1, 1, 1)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_darts_step_on_cuda_kernels_vs_plain(cuda):
+    """One second-order step with the kernels (their inputs and params take
+    gradients) against the plain forms, TF32 off: losses within 1e-5
+    relative, alphas within 1e-5, theta within 1e-6 (chip_smoke.py's
+    SEARCH_*_TOL and their reasons)."""
+    nets, v = _supernets(cuda)
+    batch = _search_batch(cuda)
+    results = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for net in nets:
+            def fwd(theta, alphas, omega, img, net=net):
+                y, aux = net({"theta": theta, "alphas": alphas,
+                              "omega": omega}, img, return_aux=True)
+                return y, aux["latency"]
+            step = make_darts_step(fwd, losses.make_criterion("l2"),
+                                   DartsConfig())
+            kb.launches = km.launches = kf.launches = 0
+            results.append(step(v, init_darts_opt_state(v), batch, 1.0))
+            results[-1] += ((kb.launches, km.launches, kf.launches),)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (kv, _, klogs, kcount), (pv, _, plogs, pcount) = results
+    assert min(kcount) >= 5 and pcount == (0, 0, 0)
+    for k in ("loss", "val_loss"):
+        assert abs(float(klogs[k]) - float(plogs[k])) <= 1e-5 * abs(
+            float(plogs[k]))
+    for slot in kv["alphas"]:
+        assert float((kv["alphas"][slot] - pv["alphas"][slot]).abs().max()
+                     ) <= 1e-5
+        for op in kv["theta"][slot]:
+            assert float((kv["theta"][slot][op] - pv["theta"][slot][op])
+                         .abs().max()) <= 1e-6

@@ -307,8 +307,8 @@ def test_local_global_loss_one_kind_only(flag):
 
 
 def test_latency_loss():
-    """With a latency the value is JAX's; without one (the port's latency
-    table is not measured yet) the criterion says so."""
+    """With a latency the value is JAX's; without one (an op with no entry
+    in the port's latency table) the criterion says so."""
     pred, target = _loss_case((2, 8, 8, 3))
     opt = {"w": 0.5, "target_latency": 2.0}
     want = jlosses.make_criterion("l2_latency", opt)(
