@@ -49,7 +49,20 @@ Phases, one line each:
      timed; the argmax architecture served by Pipeline; 6 first-order steps
      at configs/planted_search.yaml's rates (the loss must fall); and
      DartsFtTrainer at configs/planted_search_ft.yaml, 3 steps and one
-     finetune_proxies, whose targets launch the kernels.
+     finetune_proxies, whose targets launch the kernels;
+  9. the entry points a user runs, each CLI in a subprocess whose launches
+     are counted from 0 (run_cli), TF32 off: (a) proxy pretraining of the
+     bilateral, median, fast-NLM and bm3d proxies at the JAX defaults
+     (batch 8 of 48x48), with the kernels and with the plain forms as
+     targets; then on 4 SID-size packed records written here from seed 0:
+     (b) python -m reconfigisp_tpu_torch.train on configs/SID_isp.yaml with
+     slice 2's architecture, then resumed; (c) the same CLI on
+     configs/SID_search.yaml, then resumed, and on
+     configs/planted_search_ft.yaml from (a)'s proxies; (d) python -m
+     reconfigisp_tpu_torch.test at configs/SID_test.yaml's tiling on two
+     full frames with (b)'s network, f32 and bf16, the first frame held
+     against make_serving_fn.  PRETRAIN_STEPS and the step counts below it
+     list the cuts.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -58,32 +71,41 @@ their set-up from here.
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
 from reconfigisp_tpu_torch import Pipeline, config, convert, pool, precision
+from reconfigisp_tpu_torch.data import create_dataset
+from reconfigisp_tpu_torch.data.backends import PackedPairWriter
 from reconfigisp_tpu_torch.deploy import make_serving_fn
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.parallel.tiling import tile_positions
-from reconfigisp_tpu_torch.ops import color, demosaic
+from reconfigisp_tpu_torch.ops import color, demosaic, denoise
 from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.search import DartsFtTrainer, DartsTrainer, IspTrainer
+from reconfigisp_tpu_torch.search.proxy_pretrain import pretrain_modules
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils import latency
-from reconfigisp_tpu_torch.utils.checkpoint import load_network
+from reconfigisp_tpu_torch.utils.checkpoint import load_network, save_network
 
 ROOT = Path(__file__).resolve().parent
 BANK = ROOT / "experiments" / "proxies" / "default.ckpt"
@@ -91,6 +113,7 @@ SID_ISP = ROOT / "configs" / "SID_isp.yaml"
 SID_SEARCH = ROOT / "configs" / "SID_search.yaml"
 PLANTED_SEARCH = ROOT / "configs" / "planted_search.yaml"
 PLANTED_SEARCH_FT = ROOT / "configs" / "planted_search_ft.yaml"
+SID_TEST = ROOT / "configs" / "SID_test.yaml"
 SLICE1 = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"   # bilateral
 SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"   # median, fast NLM
 PATHS = {SLICE1: ("bilateral",), SLICE2: ("median", "fastnlm")}
@@ -800,13 +823,15 @@ def _train_run(trainer: IspTrainer, batch: dict) -> dict:
             "logits": convert.state_to_jax(trainer.pipeline)["logits"]}
 
 
-def phase_training(dev, bank) -> dict:
+def phase_training(dev, bank):
     """Step-2 training of SID_isp's pipeline and of both kernel paths, with
     the kernels and with the plain forms; returns the kernels' forward
-    launches over the kernel runs."""
+    launches over the kernel runs, and each path's ms per step with the
+    kernels."""
     flagship, use_proxy, train_opt, n, size = sid_isp_options()
     batch = make_training_batch(dev, n, size)
     train_launches = {name: 0 for name in KERNELS}
+    ms_per_step = {}
     for arch, kernels in {flagship: (), **PATHS}.items():
         runs = {plain: _train_run(make_trainer(dev, arch, use_proxy, bank,
                                                train_opt, plain), batch)
@@ -848,7 +873,8 @@ def phase_training(dev, bank) -> dict:
                 f"{arch}: losses {kern['losses']} vs {ref['losses']}")
         for name in KERNELS:
             train_launches[name] += kern["launches"][name]
-    return train_launches
+        ms_per_step[arch] = kern["ms"]
+    return train_launches, ms_per_step
 
 
 def phase_gradients(dev) -> None:
@@ -1012,9 +1038,10 @@ def _max_diff(a: dict, b: dict) -> float:
     return float((a - b).abs().max())
 
 
-def phase_search(dev, bank) -> dict:
+def phase_search(dev, bank):
     """Step-1 search at SID_search's geometry; returns the kernels' launches
-    in the second-order run with the kernels and remat on (the default)."""
+    in the second-order run with the kernels and remat on (the default), and
+    that run's ms per step."""
     opt = search_options(SID_SEARCH)
     data = opt["datasets"]["train"]
     n, size = data["batch_size"], data["data_size"]
@@ -1099,7 +1126,406 @@ def phase_search(dev, bank) -> dict:
     if ft_launches != expected:
         raise AssertionError(f"tuning targets: launches {ft_launches} "
                              f"!= {expected}")
-    return kern["launches"]
+    return kern["launches"], kern["ms"]
+
+
+# ------------------------------------------------------------------ phase 9
+
+# Phase 9: the entry points a user runs.  Cuts (steps, never geometry):
+# proxy pretraining PRETRAIN_STEPS of the JAX default 1000; step 2 8 + 4 of
+# SID_isp's 80,000; step 1 4 + 2 of SID_search's 200,000 and 3 of
+# planted_search_ft's 1,500 (its tuning cadence cut from 50 to 3);
+# evaluation EVAL_FRAMES frames.  The data: RECORD_PAIRS SID-size pairs made
+# from seed 0, in place of the dataset.
+PRETRAIN_STEPS = 20
+PRETRAIN_OPS = ("bilateral", "median", "fastnlm", "bm3d")
+# Pretraining losses, kernels vs plain forms, relative.  The first step's:
+# the same weights on the same samples, the targets apart by the kernels'
+# rounding order (at most 9.5e-7 bilateral, 4.8e-7 fast NLM, 0 median at
+# 4x48x48x3, phase 3), which moves a mean over n = 8 x 48 x 48 x 3 = 55,296
+# squared residuals r (|r| about 0.02) by about 2 x 1e-6 / (|r| sqrt(n)),
+# 4e-7 of it; PRETRAIN_FIRST_RTOL leaves 25x.  The last step's: Adam's first
+# steps move every weight by about lr sign(g), so a weight whose gradient
+# lies within the targets' difference of 0 can step the other way in the
+# other run, and 20 steps part such weights by up to 2 lr 20 = 0.04; the
+# loss (about 4e-4) then moves by percents (2.0e-2 for the bilateral proxy
+# in the first run on the card).  PRETRAIN_LAST_RTOL bounds that drift;
+# the first step's check is the kernels' own.
+PRETRAIN_FIRST_RTOL = 1e-5
+PRETRAIN_LAST_RTOL = 1e-1
+RECORD_FRAME = FRAME
+RECORD_PAIRS = 4
+ISP_STEPS, ISP_RESUMED, ISP_SAVE = 8, 12, 4
+SEARCH_CLI_STEPS, SEARCH_CLI_RESUMED = 4, 6
+FT_CLI_STEPS = 3
+EVAL_FRAMES = 2
+EVAL_CHUNK = 4          # tiled_apply's default, which test.py takes
+# Every CLI runs in a subprocess with TF32 off (NVIDIA_TF32_OVERRIDE=0), as
+# this script's own phases run.
+CLI_ENV = {"NVIDIA_TF32_OVERRIDE": "0"}
+# python -c: run a module as `python -m` does, with the modules named in
+# its first argument made unimportable, then print its process's kernel
+# launches and peak device memory on a line of their own
+_CLI_RUNNER = r"""
+import json, runpy, sys
+import torch
+from reconfigisp_tpu_torch.ops.kernels import bilateral, fastnlm, median
+for name in filter(None, sys.argv[1].split(",")):
+    sys.modules[name] = None
+module = sys.argv[2]
+sys.argv = sys.argv[2:]
+code = 0
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+except SystemExit as exit_:
+    code = exit_.code or 0
+peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+print("CLI_COUNTS " + json.dumps({
+    "launches": {"bilateral": bilateral.launches, "median": median.launches,
+                 "fastnlm": fastnlm.launches}, "peak_bytes": peak}),
+      flush=True)
+sys.exit(code)
+"""
+
+
+def run_cli(module: str, *args: str, without=(), timeout: int = 600) -> dict:
+    """`python -m module args` in a subprocess from the checkout's root,
+    the modules `without` unimportable there -> {"stdout", "launches",
+    "peak_bytes", "seconds"}; raises on a non-zero exit."""
+    env = dict(os.environ, **CLI_ENV)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_RUNNER, ",".join(without), module,
+         *args],
+        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} {' '.join(args)} exited "
+                           f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                           f"{proc.stderr[-6000:]}")
+    counts = json.loads(re.findall(r"^CLI_COUNTS (.*)$", proc.stdout,
+                                   re.M)[-1])
+    return {"stdout": proc.stdout, "seconds": seconds, **counts}
+
+
+def _summary(stdout: str) -> dict:
+    """The dict train.py prints after "training done:"."""
+    text = re.findall(r"^training done: (.*)$", stdout, re.M)[-1]
+    return ast.literal_eval(text)
+
+
+def _write_options(path: Path, opt: dict) -> str:
+    path.write_text(yaml.safe_dump(opt))
+    return str(path)
+
+
+@contextlib.contextmanager
+def plain_denoise():
+    """ops.denoise's three kernel ops on their plain forms, where the
+    registry's ops look them up."""
+    saved = {name: getattr(denoise, name) for name in KERNELS}
+    try:
+        for name, (_, plain, *_) in KERNELS.items():
+            setattr(denoise, name, plain)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(denoise, name, fn)
+
+
+def make_sid_records(root: Path) -> str:
+    """RECORD_PAIRS SID pairs, written with the port's PackedPairWriter from
+    seed 0: a BGR GT (uint8) smooth over 16-pixel cells, and its RGGB mosaic
+    at a tenth of the exposure with read noise, as a 14-bit raw (uint16).
+    Keys name the exposures configs/SID_test.yaml selects (0.1s, 10s)."""
+    h, w = RECORD_FRAME
+    rng = np.random.default_rng(0)
+    with PackedPairWriter(str(root), resolution=h) as writer:
+        for i in range(RECORD_PAIRS):
+            cells = rng.integers(16, 240, (-(-h // 16), -(-w // 16), 3),
+                                 dtype=np.uint8)
+            gt = np.repeat(np.repeat(cells, 16, 0), 16, 1)[:h, :w]
+            mosaic = np.empty((h, w), np.float32)
+            mosaic[0::2, 0::2] = gt[0::2, 0::2, 2]
+            mosaic[0::2, 1::2] = gt[0::2, 1::2, 1]
+            mosaic[1::2, 0::2] = gt[1::2, 0::2, 1]
+            mosaic[1::2, 1::2] = gt[1::2, 1::2, 0]
+            raw = mosaic * (16383.0 / 255.0 / 10.0) + rng.normal(
+                0.0, 20.0, (h, w)).astype(np.float32)
+            raw = np.clip(np.round(raw), 0, 16383).astype(np.uint16)
+            writer.add_pair(f"{i:05d}_00_0.1s", raw, f"{i:05d}_00_10s",
+                            np.ascontiguousarray(gt))
+    return str(root)
+
+
+def phase_pretrain(dev, bank, tmp: Path) -> dict:
+    """9a: pretrain_modules on PRETRAIN_OPS at the JAX defaults (batch 8 of
+    48x48), with the kernels as the targets and with the plain forms; ->
+    the launches and the checkpoint: the bank with the four proxies
+    replaced by the ones trained here."""
+    reports = {}
+    for mode in ("kernels", "plain"):
+        report = {}
+        ctx = plain_denoise() if mode == "plain" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            _zero_counts()
+            trained = pretrain_modules(
+                PRETRAIN_STEPS, batch=8, size=48, ops=set(PRETRAIN_OPS),
+                device=dev, verbose=False, report=report)
+            torch.cuda.synchronize()
+            launches = _counts()
+        expected = {name: 0 if mode == "plain" else PRETRAIN_STEPS
+                    for name in KERNELS}
+        if launches != expected or sorted(report) != sorted(PRETRAIN_OPS):
+            raise AssertionError(f"pretrain {mode}: launches {launches} != "
+                                 f"{expected}, ops {sorted(report)}")
+        reports[mode] = (report, launches, trained)
+    kern, plain = reports["kernels"][0], reports["plain"][0]
+    for op in PRETRAIN_OPS:
+        rel = {k: abs(kern[op][k] - plain[op][k]) / abs(plain[op][k])
+               for k in ("first_loss", "loss")}
+        line("phase 9a pretrain", op=op, steps=PRETRAIN_STEPS, batch=8,
+             size=48, s_per_step=f"{kern[op]['s_per_step']:.6f}",
+             plain_s_per_step=f"{plain[op]['s_per_step']:.6f}",
+             l2=f"{kern[op]['first_loss']:.9e}->{kern[op]['loss']:.9e}",
+             plain_l2=f"{plain[op]['first_loss']:.9e}->"
+                      f"{plain[op]['loss']:.9e}",
+             first_rel_diff=f"{rel['first_loss']:.3e}",
+             first_rtol=PRETRAIN_FIRST_RTOL,
+             last_rel_diff=f"{rel['loss']:.3e}", last_rtol=PRETRAIN_LAST_RTOL)
+        if not (math.isfinite(kern[op]["loss"])
+                and rel["first_loss"] <= PRETRAIN_FIRST_RTOL
+                and rel["loss"] <= PRETRAIN_LAST_RTOL):
+            raise AssertionError(f"pretrain {op}: kernels {kern[op]} vs "
+                                 f"plain forms {plain[op]}")
+    launches = reports["kernels"][1]
+    line("phase 9a pretrain launches",
+         launches=json.dumps(launches).replace(" ", ""))
+    path = save_network(str(tmp), "proxies", "pretrained",
+                        {**bank, **reports["kernels"][2]})
+    return {"launches": launches, "checkpoint": path}
+
+
+def _isp_options(tmp: Path, records: str, niter: int) -> dict:
+    opt = yaml.safe_load(SID_ISP.read_text())
+    opt["network_G"]["architecture"] = SLICE2
+    opt["datasets"]["train"].update(mode="SID_Records", dataroot=records)
+    opt["train"]["niter"] = niter
+    opt["logger"].update(save_checkpoint_freq=ISP_SAVE, print_freq=1)
+    opt["path"] = {"root": str(tmp), "pretrain_proxies": str(BANK)}
+    return opt
+
+
+def _iter_walls(stdout: str) -> list:
+    """train.py's per-iteration wall times (print_freq 1): the loop's whole
+    iteration, the loader's wait included."""
+    return [float(s) for s in re.findall(r"\(([0-9.]+)s/iter\)", stdout)]
+
+
+def phase_train_cli(tmp: Path, records: str, phase7_ms: float) -> dict:
+    """9b: step 2 through python -m reconfigisp_tpu_torch.train at
+    SID_isp's geometry (slice 2, SID records): ISP_STEPS steps, then resumed
+    to ISP_RESUMED; -> the launches and the last checkpoint."""
+    runs = {}
+    for niter in (ISP_STEPS, ISP_RESUMED):
+        path = _write_options(tmp / f"isp_{niter}.yaml",
+                              _isp_options(tmp, records, niter))
+        run = run_cli("reconfigisp_tpu_torch.train", "--opt", path)
+        summary = _summary(run["stdout"])
+        steps_run = niter - (0 if niter == ISP_STEPS else ISP_STEPS)
+        # a probe before and after the loop: eval_loss on its 2 samples,
+        # then a forward of each; one launch of each kernel a step
+        expected = {"bilateral": 0, "median": steps_run + 6,
+                    "fastnlm": steps_run + 6}
+        walls = _iter_walls(run["stdout"])
+        tail = walls[len(walls) // 2:]
+        wall = sum(tail) / len(tail)
+        steady = summary["steady_s_per_iter"]
+        line("phase 9b train.py", arch=SLICE2, niter=niter,
+             steps=summary["steps"], steps_run=summary["steps_run"],
+             loss=f"{summary['loss']:.6f}",
+             probe_loss=f"{summary['probe_loss_start']:.6f}->"
+                        f"{summary['probe_loss_final']:.6f}",
+             steady_s_per_iter=steady,
+             loop_s_per_iter=f"{wall:.4f}",
+             loader_and_loop_share=f"{1.0 - steady / wall:.4f}",
+             phase7_ms_per_step=f"{phase7_ms:.3f}",
+             compile_s=summary["compile_s"],
+             peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+             process_s=f"{run['seconds']:.2f}",
+             launches=json.dumps(run["launches"]).replace(" ", ""))
+        if summary["steps"] != niter or summary["steps_run"] != steps_run \
+                or not math.isfinite(summary["loss"]):
+            raise AssertionError(f"train.py niter {niter}: {summary}")
+        if niter == ISP_RESUMED and "resumed from " not in run["stdout"]:
+            raise AssertionError("train.py did not resume")
+        if run["launches"] != expected:
+            raise AssertionError(f"train.py launches {run['launches']} != "
+                                 f"{expected}")
+        runs[niter] = run
+    ckpt = tmp / "experiments" / "SID_isp" / "models" / f"{ISP_RESUMED}_G.ckpt"
+    total = {name: sum(r["launches"][name] for r in runs.values())
+             for name in KERNELS}
+    return {"launches": total, "checkpoint": str(ckpt)}
+
+
+def phase_search_cli(tmp: Path, records: str, proxies: str,
+                     phase8_ms: float) -> dict:
+    """9c: step 1 through python -m reconfigisp_tpu_torch.train:
+    SID_search.yaml on the records (4 steps, resumed to 6), and
+    planted_search_ft.yaml from 9a's proxies (3 steps, one tuning round);
+    -> the launches."""
+    total = {name: 0 for name in KERNELS}
+    for niter in (SEARCH_CLI_STEPS, SEARCH_CLI_RESUMED):
+        opt = yaml.safe_load(SID_SEARCH.read_text())
+        opt["datasets"]["train"].update(mode="SID_Records", dataroot=records)
+        opt["train"]["niter"] = niter
+        opt["path"] = {"root": str(tmp), "pretrain_proxies": str(BANK)}
+        run = run_cli("reconfigisp_tpu_torch.train", "--opt",
+                      _write_options(tmp / f"search_{niter}.yaml", opt))
+        summary = _summary(run["stdout"])
+        steps_run = niter - (0 if niter == SEARCH_CLI_STEPS
+                             else SEARCH_CLI_STEPS)
+        expected = {name: 15 * steps_run for name in KERNELS}
+        line("phase 9c train.py search", config="SID_search.yaml",
+             niter=niter, steps=summary["steps"],
+             steps_run=summary["steps_run"], loss=f"{summary['loss']:.6f}",
+             val_loss=f"{summary['val_loss']:.6f}",
+             steady_s_per_iter=summary.get("steady_s_per_iter"),
+             phase8_ms_per_step=f"{phase8_ms:.3f}",
+             architecture=summary["architecture"],
+             launches_per_step=json.dumps({k: v / steps_run for k, v in
+                                           run["launches"].items()})
+             .replace(" ", ""),
+             peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+             process_s=f"{run['seconds']:.2f}")
+        if summary["steps"] != niter or summary["steps_run"] != steps_run \
+                or run["launches"] != expected:
+            raise AssertionError(f"search niter {niter}: {summary}, "
+                                 f"launches {run['launches']}")
+        for name in KERNELS:
+            total[name] += run["launches"][name]
+
+    opt = yaml.safe_load(PLANTED_SEARCH_FT.read_text())
+    opt["proxy_ft_params"]["ft_interval"] = FT_CLI_STEPS
+    opt["train"]["niter"] = FT_CLI_STEPS
+    opt["path"] = {"root": str(tmp), "pretrain_proxies": proxies}
+    run = run_cli("reconfigisp_tpu_torch.train", "--opt",
+                  _write_options(tmp / "search_ft.yaml", opt))
+    summary = _summary(run["stdout"])
+    ft = {k: v for k, v in summary.items() if k.startswith("ft_")}
+    ft_steps = opt["proxy_ft_params"]["ft_steps"]
+    line("phase 9c train.py search", config="planted_search_ft.yaml",
+         niter=FT_CLI_STEPS, steps=summary["steps"],
+         loss=f"{summary['loss']:.6f}",
+         steady_s_per_iter=summary.get("steady_s_per_iter"),
+         architecture=summary["architecture"],
+         ft_losses=json.dumps({k: round(v, 8) for k, v in ft.items()})
+         .replace(" ", ""),
+         target_launches=json.dumps(run["launches"]).replace(" ", ""),
+         peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+         process_s=f"{run['seconds']:.2f}")
+    if summary["steps"] != FT_CLI_STEPS or len(ft) != 8 \
+            or not all(math.isfinite(v) for v in ft.values()) \
+            or run["launches"] != {name: ft_steps for name in KERNELS}:
+        raise AssertionError(f"planted_search_ft: {summary}, launches "
+                             f"{run['launches']}")
+    if "pretrained weights installed" not in run["stdout"]:
+        raise AssertionError("planted_search_ft: no pretrained proxies")
+    for name in KERNELS:
+        total[name] += run["launches"][name]
+    return {"launches": total}
+
+
+def phase_eval_cli(dev, tmp: Path, records: str, checkpoint: str) -> dict:
+    """9d: python -m reconfigisp_tpu_torch.test at SID_test.yaml's split
+    geometry on EVAL_FRAMES full frames of the records with 9b's network,
+    f32 then bf16 storage; the first frame held against make_serving_fn's
+    on the same weights; -> the launches."""
+    outs, total = {}, {name: 0 for name in KERNELS}
+    for storage in ("f32", "bf16"):
+        opt = yaml.safe_load(SID_TEST.read_text())
+        opt["name"] = f"SID_test_{storage}"
+        opt["network_G"]["architecture"] = SLICE2
+        opt["datasets"]["test"]["dataroot"] = records
+        opt["precision"] = storage
+        opt["path"] = {"root": str(tmp), "pretrain_model_G": checkpoint}
+        # without cv2, test.py keeps each output frame as float32 .npy (not
+        # an 8-bit PNG), which the check below holds to E2E_TOL
+        run = run_cli("reconfigisp_tpu_torch.test", "--opt",
+                      _write_options(tmp / f"test_{storage}.yaml", opt),
+                      "--max-images", str(EVAL_FRAMES), without=("cv2",))
+        psnr_mean = float(re.findall(r"^psnr_mean=(.*)$", run["stdout"],
+                                     re.M)[-1])
+        frame_ms = [float(v) for v in re.findall(
+            r"\] psnr [0-9.inf-]+ ssim [0-9.inf-]+ \(([0-9.]+) ms\)",
+            run["stdout"])]
+        n_tiles = (len(tile_positions(RECORD_FRAME[0], PATCH, STRIDE))
+                   * len(tile_positions(RECORD_FRAME[1], PATCH, STRIDE)))
+        calls = EVAL_FRAMES * -(-n_tiles // EVAL_CHUNK)
+        expected = {"bilateral": 0, "median": calls, "fastnlm": calls}
+        line("phase 9d test.py", arch=SLICE2, storage=storage,
+             frames=EVAL_FRAMES, frame=RECORD_FRAME, patch=PATCH,
+             stride=STRIDE, psnr_mean=psnr_mean,
+             ms_per_frame=",".join(f"{v:.3f}" for v in frame_ms),
+             peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+             process_s=f"{run['seconds']:.2f}",
+             launches=json.dumps(run["launches"]).replace(" ", ""))
+        if not math.isfinite(psnr_mean) or len(frame_ms) != EVAL_FRAMES \
+                or run["launches"] != expected:
+            raise AssertionError(f"test.py {storage}: psnr {psnr_mean}, "
+                                 f"{frame_ms}, launches {run['launches']}")
+        outs[storage] = np.load(tmp / "results" / opt["name"] / "0000.npy")
+        for name in KERNELS:
+            total[name] += run["launches"][name]
+
+    ds_opt = dict(opt["datasets"]["test"], is_train=False)
+    sample = create_dataset(ds_opt)[0]
+    pipe = Pipeline(SLICE2, device=dev)
+    pipe.load_state(convert.state_from_jax(load_network(checkpoint)))
+    serve = make_serving_fn(pipe, patch=PATCH, stride=STRIDE,
+                            chunk=EVAL_CHUNK, device=dev)
+    want = serve(sample["noisy"][None])[0].cpu().numpy()
+    diff = float(np.abs(outs["f32"] - want).max())
+    bf16_diff = float(np.abs(outs["bf16"] - outs["f32"]).max())
+    line("phase 9d test.py vs make_serving_fn", frame=tuple(want.shape),
+         max_abs_diff=f"{diff:.3e}", tol=E2E_TOL,
+         bf16_vs_f32=f"{bf16_diff:.3e}", bf16_tol=BF16_TOL,
+         range=f"{float(want.min()):.4f}..{float(want.max()):.4f}")
+    if not (diff <= E2E_TOL and bf16_diff <= BF16_TOL):
+        raise AssertionError(f"test.py output: {diff}, bf16 {bf16_diff}")
+    return {"launches": total}
+
+
+def phase_entry_points(dev, bank, phase7_ms: float, phase8_ms: float):
+    """Phase 9: the port's entry points on the card, each counted from 0
+    in its own process: 9a proxy pretraining (in this process), 9b step 2,
+    9c step 1, 9d evaluation.  -> {"pretrain": launches, "entry": launches
+    of 9b-9d}."""
+    with tempfile.TemporaryDirectory() as root:
+        tmp = Path(root)
+        t0 = time.perf_counter()
+        pre = phase_pretrain(dev, bank, tmp)
+        records = make_sid_records(tmp / "records")
+        line("phase 9 records", pairs=RECORD_PAIRS, frame=RECORD_FRAME,
+             mib=f"{sum(f.stat().st_size for f in (tmp / 'records').iterdir()) / 2**20:.1f}",
+             seconds=f"{time.perf_counter() - t0:.2f}")
+        train = phase_train_cli(tmp, records, phase7_ms)
+        search = phase_search_cli(tmp, records, pre["checkpoint"], phase8_ms)
+        evals = phase_eval_cli(dev, tmp, records, train["checkpoint"])
+        entry = {name: train["launches"][name] + search["launches"][name]
+                 + evals["launches"][name] for name in KERNELS}
+        line("phase 9 launches", pretrain=json.dumps(pre["launches"])
+             .replace(" ", ""), train=json.dumps(train["launches"])
+             .replace(" ", ""), search=json.dumps(search["launches"])
+             .replace(" ", ""), eval=json.dumps(evals["launches"])
+             .replace(" ", ""), seconds=f"{time.perf_counter() - t0:.2f}")
+    return {"pretrain": pre["launches"], "entry": entry}
 
 
 def main() -> int:
@@ -1123,10 +1549,11 @@ def main() -> int:
     phase_zoo(dev, bank)
     times = phase_times(dev, pipes, frames)
     del frames, pipes
-    train_launches = phase_training(dev, bank)
+    train_launches, train_ms = phase_training(dev, bank)
     phase_gradients(dev)
     phase_latency(dev)
-    search_launches = phase_search(dev, bank)
+    search_launches, search_ms = phase_search(dev, bank)
+    entry = phase_entry_points(dev, bank, train_ms[SLICE2], search_ms)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -1134,6 +1561,8 @@ def main() -> int:
         "replaces": replaces, "launches": launches[name],
         "train_launches": train_launches[name],
         "search_launches": search_launches[name],
+        "pretrain_launches": entry["pretrain"][name],
+        "entry_point_launches": entry["entry"][name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

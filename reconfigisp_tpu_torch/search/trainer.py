@@ -4,30 +4,40 @@ Counterpart of reconfigisp_tpu/search/trainer.py:
   IspTrainer     <- IspModel     (reference codes/models/isp_model.py:15-151)
   DartsTrainer   <- DartsModel   (darts_model.py:19-330) + train.py loop
   DartsFtTrainer <- DartsFtModel (darts_ft_model.py:20-368) + train_ft.py
+  run_training   <- run_training (reference codes/train.py:58-301, train_ft.py)
 IspTrainer's Pipeline module holds its state and torch.optim.Adam updates it
 in place; the search trainers hold the supernet's variables and the DARTS
 state as dicts that search/darts.py's step replaces each step.  Checkpoints
 hold the JAX layout (convert.state_to_jax, convert.adam_state_to_jax,
 convert.supernet_variables_to_jax, convert.darts_opt_state_to_jax), so the
 JAX package resumes what these trainers save, and the reverse.  Not ported
-yet (ROADMAP.md): data-parallel training (the JAX trainers' `mesh`) and the
-search's K-step dispatch (`steps_per_dispatch`, `flush`).
+yet (ROADMAP.md): data-parallel training (the JAX trainers' `mesh`, DDP),
+the search's K-step dispatch (`steps_per_dispatch`, `flush`) and the YOLO
+criterion (model darts_yolo).
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from reconfigisp_tpu_torch import convert
-from reconfigisp_tpu_torch.pipeline import Pipeline
+from reconfigisp_tpu_torch.pipeline import Pipeline, resolve_device
 from reconfigisp_tpu_torch.search.darts import (
     DartsConfig, init_darts_opt_state, make_darts_step)
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils import checkpoint, losses
+from reconfigisp_tpu_torch.utils.logging_utils import (
+    MetricsLogger, setup_logger)
 from reconfigisp_tpu_torch.utils.schedule import make_schedule
+
+_YOLO_SLICE = ("the YOLO criterion comes with the YOLO slice of the port "
+               "(ROADMAP item 7)")
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -136,6 +146,15 @@ class IspTrainer:
             opt_state=convert.adam_state_to_jax(self.optimizer,
                                                 self.pipeline),
             extra={"last_logs": self._last_logs})
+
+    def load_weights(self, weights_by_name: dict) -> None:
+        """Install weights (JAX pytrees, as utils/checkpoint.load_network
+        reads them) by op name, or by step name for a step that takes
+        weights of its own; then a fresh optimizer over the parameters."""
+        self.pipeline.load_state({"weights": {
+            name: convert.weights_from_jax(tree)
+            for name, tree in weights_by_name.items()}})
+        self._make_optimizer()
 
     def resume(self, state_path: str) -> int:
         """Load a training state (this trainer's or the JAX package's) ->
@@ -377,3 +396,450 @@ class DartsFtTrainer(DartsTrainer):
                 optimizer.zero_grad(set_to_none=True)
             logs[f"ft_{spec.name}"] = float(loss.detach())
         return logs
+
+
+# ------------------------------------------------------------ run_training
+
+def dist_mesh(batch_size: int, device: torch.device) -> None:
+    """`dist: true`: the devices a data-parallel run would split the batch
+    over (the JAX package's dist_mesh, search/trainer.py:439-457).  With
+    one visible device, or a batch that no larger device count divides,
+    the run is serial, as in JAX, and this returns None; across devices it
+    raises, since data parallelism (DDP) is not ported yet."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    data = max(k for k in range(1, n + 1) if batch_size % k == 0)
+    if n == 1 or data == 1:
+        return None
+    raise NotImplementedError(
+        f"dist: true over {data} devices: data-parallel training (DDP) is "
+        "not ported yet (ROADMAP item 8); make one device visible")
+
+
+def _make_val_probe(opt, dataset, trainer, n_samples: int = 2):
+    """Periodic validation probe: writes in|out|gt image strips under
+    path.val_images and returns the val PSNR (reference train.py:218-297),
+    and the criterion on the probe samples where the trainer has a
+    loss-only eval.  The samples are drawn once, here (see
+    _probe_access_slack)."""
+    from reconfigisp_tpu_torch.utils.imaging import tensor2bgr
+    from reconfigisp_tpu_torch.utils.metrics import psnr as psnr_fn
+
+    paths = opt.get("path") or {}
+    val_dir = paths.get("val_images")
+    samples = [dataset[i] for i in range(min(n_samples, len(dataset)))]
+
+    if hasattr(trainer, "net"):
+        def fwd(x):
+            return trainer.net(trainer.variables, x)
+    else:
+        def fwd(x):
+            return trainer.pipeline(x)
+
+    # a fixed batch over the keys every sample carries, so the criterion is
+    # taken on identical data at each call
+    probe_batch = None
+    target_key = getattr(trainer, "target_key", "gt")
+    if hasattr(trainer, "eval_loss") and samples:
+        keys = set(samples[0].keys())
+        for s in samples[1:]:
+            keys &= set(s.keys())
+        keys &= {"noisy", target_key, "glb_flag"}
+        if "noisy" in keys and target_key in keys:
+            probe_batch = {k: np.stack([np.asarray(s[k]) for s in samples])
+                           for k in keys}
+
+    @torch.no_grad()
+    def probe(step_idx: int) -> dict:
+        logs = {}
+        if probe_batch is not None:
+            logs["probe_loss"] = trainer.eval_loss(probe_batch)
+        psnrs = []
+        for si, s in enumerate(samples):
+            x = trainer._tensor(s["noisy"])[None]
+            y = torch.clamp(fwd(x)[0], 0.0, 1.0).cpu().numpy()
+            gt = s.get("gt")
+            if gt is not None:
+                psnrs.append(float(psnr_fn(torch.from_numpy(y),
+                                           torch.from_numpy(gt))))
+            if val_dir:
+                os.makedirs(val_dir, exist_ok=True)
+                noisy = s["noisy"]
+                inp = (np.repeat(noisy, 3, axis=-1)
+                       if noisy.shape[-1] == 1 else noisy)
+                panels = [inp, y] + ([gt] if gt is not None else [])
+                strip = np.concatenate([tensor2bgr(p) for p in panels],
+                                       axis=1)
+                try:
+                    import cv2
+                    cv2.imwrite(os.path.join(
+                        val_dir, f"{step_idx:08d}_{si}.png"), strip)
+                except ImportError:
+                    np.save(os.path.join(
+                        val_dir, f"{step_idx:08d}_{si}.npy"), strip)
+        if psnrs:
+            logs["val_psnr"] = float(np.mean(psnrs))
+        return logs
+
+    return probe
+
+
+def _timing_summary(iter_times: list) -> dict:
+    """compile_s: the first loop body's wall time (the kernels' build and
+    the first step); steady_s_per_iter: the mean over the last half of the
+    iterations."""
+    if not iter_times:
+        return {}
+    n = len(iter_times)
+    tail = iter_times[max(1, n // 2):] or iter_times[-1:]
+    return {"compile_s": round(float(iter_times[0]), 3),
+            "steady_s_per_iter": round(float(np.mean(tail)), 4)}
+
+
+def _loss_window_summary(loss_hist: list) -> dict:
+    """Means of the first and last ~10% of the finite per-iter losses,
+    which vary with the crop draw."""
+    if len(loss_hist) < 4:
+        return {}
+    w = max(2, len(loss_hist) // 10)
+    return {"loss_head_mean": round(float(np.mean(loss_hist[:w])), 6),
+            "loss_tail_mean": round(float(np.mean(loss_hist[-w:])), 6)}
+
+
+def _val_window_summary(val_hist: list) -> dict:
+    """The same windows over the bilevel val loss, which the alpha update
+    optimises."""
+    if len(val_hist) < 4:
+        return {}
+    w = max(2, len(val_hist) // 10)
+    return {"val_loss_head_mean": round(float(np.mean(val_hist[:w])), 6),
+            "val_loss_tail_mean": round(float(np.mean(val_hist[-w:])), 6)}
+
+
+def _alpha_gap_summary(alphas: dict) -> dict:
+    """Per slot, softmax(alphas): top probability minus the median one (0
+    at uniform alphas), rounded to 4 decimals, and the largest gap."""
+    gaps = {}
+    for slot, arr in alphas.items():
+        a = torch.as_tensor(arr, dtype=torch.float32).detach().cpu()
+        p = torch.softmax(a, dim=0).numpy()
+        gaps[slot] = round(float(np.max(p) - np.median(p)), 4)
+    return {"alpha_top_minus_median": gaps,
+            "alpha_gap_max": max(gaps.values()) if gaps else 0.0}
+
+
+def _probe_access_slack(opt: dict, step_idx: int, n_probe: int = 2) -> int:
+    """Crop-counter slack for resume: the val probe draws dataset[0..n-1]
+    once at construction and once per val_freq firing, on top of the
+    step x batch training draws."""
+    vf = int((opt.get("logger") or {}).get("val_freq") or 0)
+    return n_probe * (1 + (step_idx // vf if vf else 0))
+
+
+class _Trace:
+    """train.trace_steps [a, b]: a torch.profiler trace from before step
+    a + 1 to after step b, written as a Chrome trace under `trace_dir` (the
+    JAX package's jax.profiler trace)."""
+
+    def __init__(self, steps, trace_dir: str, device: torch.device, logger):
+        self.steps = [int(s) for s in steps] if steps else None
+        self.dir = trace_dir
+        self.logger = logger
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.activities = acts
+        self.prof = None
+
+    def before(self, step_idx: int) -> None:
+        if self.steps and step_idx == self.steps[0]:
+            self.prof = torch.profiler.profile(activities=self.activities)
+            self.prof.__enter__()
+
+    def after(self, step_idx: int) -> None:
+        if self.prof is not None and step_idx == self.steps[1]:
+            self.prof.__exit__(None, None, None)
+            os.makedirs(self.dir, exist_ok=True)
+            path = os.path.join(self.dir, "trace.json")
+            self.prof.export_chrome_trace(path)
+            self.prof = None
+            self.logger.info(f"profile trace written to {path}")
+
+
+def run_training(opt: dict, *, max_iters: Optional[int] = None,
+                 device=None) -> dict:
+    """End-to-end training loop (reference codes/train.py:58-301 and
+    train_ft.py; the JAX package's run_training) for models isp, darts and
+    darts_ft -> a summary dict with the JAX package's keys.  Runs on
+    `device`, else the options' `device`, else cuda; raises without CUDA
+    unless "cpu" is named.  Rank 0 of world 1 until DDP is ported."""
+    from reconfigisp_tpu_torch.data import create_dataset
+
+    model = opt["model"] or ""
+    if "yolo" in model:
+        raise NotImplementedError(f"model {model!r}: {_YOLO_SLICE}")
+    if model not in ("isp", "darts", "darts_ft"):
+        raise ValueError(f"unknown model {model!r}")
+    dev = resolve_device(device if device is not None else opt.get("device"))
+    name = opt.get("name", "run")
+    paths = opt.get("path") or {}
+    # a fresh run archives an existing experiment dir (reference
+    # train.py:85-90); resume (the default) continues in place
+    resume = opt["train"].get("resume", True) if opt.get("train") else True
+    if not resume and paths.get("experiments_root"):
+        from reconfigisp_tpu_torch.utils.imaging import mkdir_and_rename
+        mkdir_and_rename(paths["experiments_root"])
+    logger = setup_logger("base", paths.get("log"), f"train_{name}")
+    metrics = MetricsLogger(paths.get("log"),
+                            use_tb=bool(opt.get("use_tb_logger")))
+
+    train_opt = opt["train"]
+    niter = int(max_iters or train_opt.get("niter", 100))
+    seed = train_opt.get("manual_seed", 0) or 0
+    generator = torch.Generator().manual_seed(seed)
+
+    dataset_opt = dict(opt["datasets"]["train"])
+    dataset_opt.setdefault("seed", seed)
+    dataset = create_dataset(dataset_opt)
+    batch_size = dataset_opt.get("batch_size", 4) or 4
+    if opt.get("dist"):
+        dist_mesh(batch_size, dev)
+
+    # the measured per-op latency table, installed before any net reads it
+    if train_opt.get("calibrate_latency"):
+        from reconfigisp_tpu_torch.utils import latency as latlib
+        table = latlib.calibrate(
+            size=int(train_opt.get("latency_calib_size") or 256), device=dev)
+        latlib.install(table)
+        logger.info("installed measured latency table: " + ", ".join(
+            f"{k}={v:.3f}" for k, v in sorted(table.items())))
+        if paths.get("experiments_root"):
+            os.makedirs(paths["experiments_root"], exist_ok=True)
+            with open(os.path.join(paths["experiments_root"],
+                                   "latency_table.json"), "w") as f:
+                json.dump(table, f, indent=1)
+
+    run = _run_search if model in ("darts", "darts_ft") else _run_isp
+    trainer, summary = run(opt, dataset, batch_size, niter, seed, generator,
+                           dev, resume, logger, metrics)
+    metrics.close()
+    summary["steps"] = trainer.step_idx
+    return summary
+
+
+def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
+                resume, logger, metrics):
+    """The darts and darts_ft branch of run_training."""
+    from reconfigisp_tpu_torch import config
+    from reconfigisp_tpu_torch.data import create_search_loaders
+    from reconfigisp_tpu_torch.data.datasets import set_access_base
+
+    paths = opt.get("path") or {}
+    train_opt = opt["train"]
+    net = SuperNet(**config.supernet_kwargs(opt), device=dev)
+    if opt["model"] == "darts_ft":
+        trainer = DartsFtTrainer(net, train_opt,
+                                 opt.get("proxy_ft_params") or {},
+                                 generator=generator)
+    else:
+        trainer = DartsTrainer(net, train_opt, generator=generator)
+
+    # resume if a training state exists
+    start_epoch = 0
+    state_dir = paths.get("training_state")
+    if resume and state_dir:
+        latest = checkpoint.latest_state(state_dir)
+        if latest:
+            start_epoch = trainer.resume(latest)
+            logger.info(f"resumed from {latest} (step {trainer.step_idx}, "
+                        f"epoch {start_epoch})")
+            # crop-access counters past every draw of the run before
+            set_access_base(dataset, trainer.step_idx * batch_size
+                            + _probe_access_slack(opt, trainer.step_idx))
+
+    # pretrained module weights (produced by search/proxy_pretrain.py)
+    if paths.get("pretrain_proxies"):
+        loaded = checkpoint.load_network(paths["pretrain_proxies"])
+        names = trainer.load_pretrained(loaded)
+        logger.info(f"pretrained weights installed for {sorted(names)}")
+        missing = sorted(set(trainer.variables["omega"]) - set(names))
+        if missing:
+            logger.warning(
+                f"pretrain_proxies checkpoint covers no weights for "
+                f"{missing}: those modules enter the search untrained")
+
+    # rank 0 of world 1; a resumed run restarts the samplers at the saved
+    # epoch, as the JAX package's does
+    train_loader, val_loader = create_search_loaders(
+        dataset, batch_size, seed=seed, start_epoch=start_epoch)
+    per_epoch_steps = max(train_loader.sampler.per_epoch_len // batch_size, 1)
+    resumed_step = trainer.step_idx
+
+    def cur_epoch():
+        return start_epoch + (trainer.step_idx - resumed_step) // per_epoch_steps
+
+    logger_opt = opt.get("logger") or {}
+    print_freq = logger_opt.get("print_freq", 10)
+    save_freq = logger_opt.get("save_checkpoint_freq")
+    val_freq = logger_opt.get("val_freq")
+    probe = _make_val_probe(opt, dataset, trainer)
+    trace = _Trace(train_opt.get("trace_steps"),
+                   os.path.join(paths.get("experiments_root") or ".", "trace"),
+                   dev, logger)
+    # the checkpointed last metrics: a run that resumes complete runs no
+    # step and reports its trained loss
+    logs = dict(trainer.last_logs)
+    iter_times: list = []
+    first_loss = None
+    loss_hist: list = []
+    val_hist: list = []
+    t0 = time.time()
+    for (tb, vb) in zip(train_loader, val_loader):
+        if trainer.step_idx >= niter:
+            break
+        trace.before(trainer.step_idx)
+        t_step = time.time()
+        logs = trainer.search_step(tb, vb)
+        trace.after(trainer.step_idx)
+        if isinstance(trainer, DartsFtTrainer):
+            trainer.record_intermediates(tb)
+            if trainer.step_idx % trainer.ft_interval == 0:
+                logs.update(trainer.finetune_proxies())
+        iter_times.append(time.time() - t_step)
+        if np.isfinite(logs.get("loss", np.nan)):
+            loss_hist.append(float(logs["loss"]))
+        if np.isfinite(logs.get("val_loss", np.nan)):
+            val_hist.append(float(logs["val_loss"]))
+        if first_loss is None and np.isfinite(logs.get("loss", np.nan)):
+            first_loss = float(logs["loss"])
+        if trainer.step_idx % print_freq == 0:
+            dt = (time.time() - t0) / print_freq
+            # pruned-path counts (reference train.py:286-287)
+            pruned = trainer.pruned_paths(tb["noisy"][:1])
+            logger.info(
+                f"iter {trainer.step_idx:8,d} loss {logs['loss']:.4e} "
+                f"val {logs['val_loss']:.4e} pruned {pruned.tolist()} "
+                f"({dt:.3f}s/iter)")
+            # per-slot alpha distributions (reference train.py:279-283)
+            alpha_logs = {}
+            for slot, arr in trainer.variables["alphas"].items():
+                for m, a in enumerate(arr.detach().cpu().numpy()):
+                    alpha_logs[f"alpha_{slot}/m_{m + 1}"] = float(a)
+            for s, cnt in zip(trainer.net.slot_names, pruned):
+                alpha_logs[f"pruned/{s}"] = float(cnt)
+            metrics.scalars(trainer.step_idx, {**logs, **alpha_logs})
+            t0 = time.time()
+        if val_freq and trainer.step_idx % int(val_freq) == 0:
+            logs.update(probe(trainer.step_idx))
+            t0 = time.time()
+        if save_freq and trainer.step_idx % int(save_freq) == 0 \
+                and paths.get("models"):
+            trainer.save(paths["models"], paths["training_state"],
+                         cur_epoch())
+    arch = trainer.architecture()
+    logger.info(f"final architecture: {arch}")
+    summary = {"architecture": arch, **logs,
+               "steps_run": trainer.step_idx - resumed_step,
+               **_timing_summary(iter_times),
+               **_loss_window_summary(loss_hist),
+               **_val_window_summary(val_hist),
+               **_alpha_gap_summary(trainer.variables["alphas"])}
+    if first_loss is not None:
+        summary["loss_first"] = first_loss
+    if paths.get("models"):
+        trainer.save(paths["models"], paths["training_state"], cur_epoch())
+    return trainer, summary
+
+
+def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
+             logger, metrics):
+    """The isp branch of run_training: step-2 training of a fixed
+    pipeline."""
+    from reconfigisp_tpu_torch.config import network_uses_proxy
+    from reconfigisp_tpu_torch.data import create_loader
+    from reconfigisp_tpu_torch.data.datasets import set_access_base
+
+    paths = opt.get("path") or {}
+    train_opt = opt["train"]
+    net_opt = opt["network_G"]
+    pipe = Pipeline(net_opt["architecture"],
+                    use_proxy=network_uses_proxy(net_opt), device=dev,
+                    generator=generator)
+    trainer = IspTrainer(pipe, train_opt,
+                         train_weights=bool(train_opt.get("train_weights")))
+    # pretrained module weights: the shared bank, then per-step overrides
+    # (reference isp_universal.py:169-176)
+    if paths.get("pretrain_proxies"):
+        loaded = checkpoint.load_network(paths["pretrain_proxies"])
+        trainer.load_weights({name: w for name, w in loaded.items()
+                              if name in pipe.weights})
+    for step_name, wpath in (net_opt.get("module_weight_paths")
+                             or {}).items():
+        trainer.load_weights({step_name: checkpoint.load_network(wpath)})
+    # resume after the installs, so a saved state wins over them
+    state_dir = paths.get("training_state")
+    if resume and state_dir:
+        latest = checkpoint.latest_state(state_dir)
+        if latest:
+            trainer.resume(latest)
+            logger.info(f"resumed from {latest} (step {trainer.step_idx})")
+            set_access_base(dataset, trainer.step_idx * batch_size
+                            + _probe_access_slack(opt, trainer.step_idx))
+    resumed_step = trainer.step_idx
+    # skip what the run before consumed: the stream continues where it
+    # stopped
+    loader = create_loader(dataset, batch_size, shuffle_seed=seed,
+                           skip=trainer.step_idx * batch_size)
+    per_rank = max(loader.sampler.per_epoch_len, 1)
+
+    def cur_epoch():
+        return (trainer.step_idx * batch_size) // per_rank
+
+    logger_opt = opt.get("logger") or {}
+    print_freq = logger_opt.get("print_freq", 10)
+    save_freq = logger_opt.get("save_checkpoint_freq")
+    val_freq = logger_opt.get("val_freq")
+    probe = _make_val_probe(opt, dataset, trainer)
+    # the same fixed samples scored before and after training
+    start_probe = {f"{k}_start": v for k, v in probe(0).items()
+                   if k in ("probe_loss", "val_psnr")}
+    logs = dict(trainer.last_logs)
+    iter_times = []
+    first_loss = None
+    loss_hist: list = []
+    t0 = time.time()
+    for batch in loader:
+        if trainer.step_idx >= niter:
+            break
+        t_step = time.time()
+        logs = trainer.train_step(batch)
+        iter_times.append(time.time() - t_step)
+        if np.isfinite(logs.get("loss", np.nan)):
+            loss_hist.append(float(logs["loss"]))
+        if first_loss is None and np.isfinite(logs.get("loss", np.nan)):
+            first_loss = float(logs["loss"])
+        if trainer.step_idx % print_freq == 0:
+            dt = (time.time() - t0) / print_freq
+            logger.info(f"iter {trainer.step_idx:8,d} "
+                        f"loss {logs['loss']:.4e} ({dt:.3f}s/iter)")
+            metrics.scalars(trainer.step_idx, logs)
+            t0 = time.time()
+        if val_freq and trainer.step_idx % int(val_freq) == 0:
+            logs.update(probe(trainer.step_idx))
+            t0 = time.time()
+        if save_freq and trainer.step_idx % int(save_freq) == 0 \
+                and paths.get("models"):
+            trainer.save(paths["models"], paths["training_state"],
+                         cur_epoch())
+    summary = dict(logs)
+    summary["steps_run"] = trainer.step_idx - resumed_step
+    summary.update(_timing_summary(iter_times))
+    if first_loss is not None:
+        summary["loss_first"] = first_loss
+    summary.update(_loss_window_summary(loss_hist))
+    summary.update(start_probe)
+    summary.update({f"{k}_final": v for k, v in
+                    probe(trainer.step_idx).items()
+                    if k in ("probe_loss", "val_psnr")})
+    if paths.get("models"):
+        trainer.save(paths["models"], paths["training_state"], cur_epoch())
+    return trainer, summary

@@ -1,7 +1,7 @@
 """The bilateral, median and fast-NLM CUDA kernels against their plain
 PyTorch forms, on the card, forward and backward, a few steps of step-2
-training through them, and the supernet and a second-order DARTS step
-through them.
+training through them, the supernet and a second-order DARTS step through them,
+and the train and test CLIs on the card.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs alone:
@@ -10,10 +10,15 @@ imports no JAX, so on a machine without JAX it runs alone:
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import yaml
 
 import reconfigisp_tpu_torch as rt
 from reconfigisp_tpu_torch import convert
@@ -353,3 +358,92 @@ def test_darts_step_on_cuda_kernels_vs_plain(cuda):
         for op in kv["theta"][slot]:
             assert float((kv["theta"][slot][op] - pv["theta"][slot][op])
                          .abs().max()) <= 1e-6
+
+
+# ------------------------------------------------------------- entry points
+
+_REPO = Path(__file__).resolve().parents[1]
+_SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"
+
+
+def _cli(args, cwd):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(_REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                        if p])
+    return subprocess.run([sys.executable, "-m", *args], cwd=str(cwd),
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def _sid_records(root, n, h, w):
+    """n SID pairs of uint16 14-bit raws and uint8 BGR GTs, seed 0."""
+    from reconfigisp_tpu_torch.data.backends import PackedPairWriter
+    rng = np.random.default_rng(0)
+    with PackedPairWriter(str(root)) as wr:
+        for i in range(n):
+            gt = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            raw = rng.integers(0, 16384, (h, w), dtype=np.uint16)
+            wr.add_pair(f"{i:05d}_0.1s", raw, f"{i:05d}_10s", gt)
+    return str(root)
+
+
+def test_train_cli_on_cuda_slice2(cuda, tmp_path):
+    """python -m reconfigisp_tpu_torch.train on the card: configs/SID_isp.yaml
+    with slice 2's architecture, the in-repo bank and packed records, 2
+    steps, checkpointed."""
+    opt = yaml.safe_load(open(_REPO / "configs" / "SID_isp.yaml"))
+    opt["network_G"]["architecture"] = _SLICE2
+    opt["datasets"]["train"].update(
+        mode="SID_Records", dataroot=_sid_records(tmp_path / "rec", 4, 256,
+                                                  320))
+    opt["path"] = {"root": str(tmp_path), "pretrain_proxies": str(
+        _REPO / "experiments" / "proxies" / "default.ckpt")}
+    path = tmp_path / "isp.yaml"
+    path.write_text(yaml.safe_dump(opt))
+    r = _cli(["reconfigisp_tpu_torch.train", "--opt", str(path), "--niter",
+              "2"], tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "'steps': 2" in r.stdout
+    assert (tmp_path / "experiments" / "SID_isp" / "models"
+            / "2_G.ckpt").is_file()
+
+
+def test_test_cli_on_cuda_one_frame(cuda, tmp_path):
+    """python -m reconfigisp_tpu_torch.test on the card: one 512x512 frame
+    of slice 2, tiled at SID_test's 512 / 480, from a saved network; the
+    output equals make_serving_fn's on the same weights within 1e-4 (both
+    with PyTorch's default TF32 setting and 4 tiles a call)."""
+    from reconfigisp_tpu_torch.deploy import make_serving_fn
+    from reconfigisp_tpu_torch.utils import checkpoint
+    bank = checkpoint.load_network(
+        str(_REPO / "experiments" / "proxies" / "default.ckpt"))
+    pipe = rt.Pipeline(_SLICE2, device=cuda)
+    pipe.load_state(convert.state_from_bank(bank, pipe))
+    ckpt = checkpoint.save_network(str(tmp_path), "G", "t",
+                                   convert.state_to_jax(pipe))
+    opt = yaml.safe_load(open(_REPO / "configs" / "SID_test.yaml"))
+    opt["network_G"]["architecture"] = _SLICE2
+    opt["datasets"]["test"]["dataroot"] = _sid_records(tmp_path / "rec", 1,
+                                                       512, 512)
+    opt["path"] = {"root": str(tmp_path), "pretrain_model_G": ckpt}
+    path = tmp_path / "test.yaml"
+    path.write_text(yaml.safe_dump(opt))
+    r = _cli(["reconfigisp_tpu_torch.test", "--opt", str(path)], tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "psnr_mean=" in r.stdout
+    results = tmp_path / "results" / "SID_test"
+    frames = sorted(results.glob("0000.*"))
+    assert frames, list(results.iterdir())
+    from reconfigisp_tpu_torch.data import create_dataset
+    sample = create_dataset(dict(opt["datasets"]["test"], is_train=False))[0]
+    want = make_serving_fn(pipe, patch=512, stride=480, chunk=4,
+                           device=cuda)(sample["noisy"][None])[0].cpu().numpy()
+    if frames[0].suffix == ".npy":
+        got = np.load(frames[0])
+        assert float(np.abs(got - want).max()) <= 1e-4
+    else:   # a PNG where cv2 is present: 8-bit
+        import cv2
+        got = cv2.imread(str(frames[0]), cv2.IMREAD_UNCHANGED)
+        assert int(np.abs(got.astype(int) - np.clip(
+            np.round(want * 255), 0, 255).astype(int)).max()) <= 1
