@@ -14,7 +14,8 @@ Phases, one line each:
   3. each kernel against its plain PyTorch form on the card: bilateral and
      median at radii 1-7, fast NLM at block radii 1-7 with per-image search
      radii 1-7; C = 3 and C = 1, a ragged 520x776 frame, phase 7's
-     4x192x192 training batch and phase 8's 4x48x48x3 search batch; the median and the bilateral also on
+     4x192x192 training batch, phase 8's 4x48x48x3 search batch and phase
+     10's 4x256x256x3 and 2x512x512x3; the median and the bilateral also on
      saturated input (runs of exact 0 and 1), the bilateral on constant
      input and at both sigma extremes;
   4. the two serving paths end to end on two 2848x4256 frames (patch 512,
@@ -62,7 +63,20 @@ Phases, one line each:
      reconfigisp_tpu_torch.test at configs/SID_test.yaml's tiling on two
      full frames with (b)'s network, f32 and bf16, the first frame held
      against make_serving_fn.  PRETRAIN_STEPS and the step counts below it
-     list the cuts.
+     list the cuts;
+ 10. the detection path under the frozen 80-class YOLOv3, its weights the
+     port's seeded init written as a darknet file, on synthetic_yolo
+     frames: the forward on the card against the CPU; (a)
+     configs/yolo_search.yaml (batch 4 of 256x256) through the train CLI,
+     then resumed, and in process with the kernels and with the plain
+     forms (losses, alphas and theta held within YOLO_*_TOL), the
+     detector's share of a step, the argmax architecture served; (b)
+     configs/yolo_isp.yaml (batch 2 of 512x512), its flagship and slice 2
+     with the kernels and the plain forms; (c) configs/yolo_test.yaml's
+     whole 1024x1024 frames through the test CLI with (b)'s network, map=
+     printed, the first frame's detections held against an in-process
+     decode and NMS.  YOLO_FRAMES and the step counts below it list the
+     cuts.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -103,9 +117,15 @@ from reconfigisp_tpu_torch.ops import color, demosaic, denoise
 from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.search import DartsFtTrainer, DartsTrainer, IspTrainer
 from reconfigisp_tpu_torch.search.proxy_pretrain import pretrain_modules
+from reconfigisp_tpu_torch.search.trainer import (
+    build_yolo_evaluator, make_yolo_criterion)
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils import latency
 from reconfigisp_tpu_torch.utils.checkpoint import load_network, save_network
+from reconfigisp_tpu_torch.yolo import cfg as ycfg
+from reconfigisp_tpu_torch.yolo import train as ytrain
+from reconfigisp_tpu_torch.yolo.net import (
+    init_yolo, load_darknet_weights, save_darknet_weights)
 
 ROOT = Path(__file__).resolve().parent
 BANK = ROOT / "experiments" / "proxies" / "default.ckpt"
@@ -587,6 +607,19 @@ def _kernel_cases():
                    shape, list(radii), b)
     for r in r17:
         yield "median", f"search_4x48x48x3_r{r}", shape, [r] * 4, 4
+    # phase 10's batches: yolo_search.yaml's 4 x 256 x 256 (the sRGB slots'
+    # input) and yolo_isp.yaml's 2 x 512 x 512
+    for n, size in ((4, 256), (2, 512)):
+        shape = (n, size, size, 3)
+        tag = f"yolo_{n}x{size}x{size}x3"
+        for radii in ((1, 2, 3, 4), (4, 5, 6, 7)):
+            rows = list(radii) if n == 4 else [radii[0], radii[-1]]
+            span = f"{rows[0]}-{rows[-1]}"
+            yield "bilateral", f"{tag}_r{span}", shape, rows, 4
+            for b in (1, 4, 7):
+                yield "fastnlm", f"{tag}_b{b}_s{span}", shape, rows, b
+        for r in r17:
+            yield "median", f"{tag}_r{r}", shape, [r] * n, 4
 
 
 def phase_kernels(dev) -> dict:
@@ -787,18 +820,20 @@ def sid_isp_options():
 
 
 def make_trainer(dev, arch, use_proxy, bank, train_opt,
-                 plain: bool = False) -> IspTrainer:
+                 plain: bool = False, **trainer_kw) -> IspTrainer:
     """An IspTrainer on a pipeline with the bank's weights and the init
-    logits, its kernel ops on their plain forms if `plain`."""
+    logits, its kernel ops on their plain forms if `plain`; trainer_kw go to
+    IspTrainer (a criterion and its target key)."""
     pipe = load_pipeline(dev, arch, use_proxy, bank)
     if plain:
         pipe.steps = _with_plain_kernels(pipe)
-    return IspTrainer(pipe, train_opt)
+    return IspTrainer(pipe, train_opt, **trainer_kw)
 
 
-def _train_run(trainer: IspTrainer, batch: dict) -> dict:
-    """TRAIN_STEPS steps, with every count set to 0 just before the steps
-    and read just after."""
+def _train_run(trainer: IspTrainer, batch: dict, steps: int = TRAIN_STEPS,
+               warmup: int = TRAIN_WARMUP) -> dict:
+    """`steps` steps, with every count set to 0 just before the steps and
+    read just after; the steps after `warmup` timed."""
     dev = trainer.pipeline.device
     start_logits = convert.state_to_jax(trainer.pipeline)["logits"]
     before = trainer.eval_loss(batch)
@@ -808,8 +843,8 @@ def _train_run(trainer: IspTrainer, batch: dict) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
     losses = []
-    for step in range(TRAIN_STEPS):
-        if step == TRAIN_WARMUP:
+    for step in range(steps):
+        if step == warmup:
             start.record()
         losses.append(trainer.train_step(batch)["loss"])
     end.record()
@@ -817,7 +852,7 @@ def _train_run(trainer: IspTrainer, batch: dict) -> dict:
     launches = _counts()
     return {"losses": losses, "before": before,
             "after": trainer.eval_loss(batch), "launches": launches,
-            "ms": start.elapsed_time(end) / (TRAIN_STEPS - TRAIN_WARMUP),
+            "ms": start.elapsed_time(end) / (steps - warmup),
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "start_logits": start_logits,
             "logits": convert.state_to_jax(trainer.pipeline)["logits"]}
@@ -970,10 +1005,11 @@ def search_options(path: Path):
 
 
 def make_search_trainer(dev, bank, opt, *, plain=False, remat=None,
-                        order=None, ft=False):
+                        order=None, ft=False, **trainer_kw):
     """A DartsTrainer (DartsFtTrainer with `ft`) on the supernet the options
     describe, omega from the bank, its kernel ops on their plain forms if
-    `plain`."""
+    `plain`; trainer_kw go to DartsTrainer (a criterion and its target
+    key)."""
     kw = config.supernet_kwargs(opt)
     if remat is not None:
         kw["remat"] = remat
@@ -985,7 +1021,7 @@ def make_search_trainer(dev, bank, opt, *, plain=False, remat=None,
     if order is not None:
         train_opt["darts_order"] = order
     trainer = (DartsFtTrainer(net, train_opt, opt["proxy_ft_params"] or {})
-               if ft else DartsTrainer(net, train_opt))
+               if ft else DartsTrainer(net, train_opt, **trainer_kw))
     installed = trainer.load_pretrained(bank)
     missing = sorted(set(trainer.variables["omega"]) - set(installed))
     if missing:
@@ -994,9 +1030,9 @@ def make_search_trainer(dev, bank, opt, *, plain=False, remat=None,
 
 
 def _search_run(trainer, train, val, steps: int = SEARCH_STEPS,
-                record: bool = False) -> dict:
+                record: bool = False, warmup: int = SEARCH_WARMUP) -> dict:
     """`steps` search steps, with every count set to 0 just before the
-    steps and read just after; steps after SEARCH_WARMUP timed.  With
+    steps and read just after; steps after `warmup` timed.  With
     `record`, each step's intermediates go into the ft trainer's memory, as
     the JAX package's run_training records them."""
     dev = trainer.net.device
@@ -1007,7 +1043,7 @@ def _search_run(trainer, train, val, steps: int = SEARCH_STEPS,
     _zero_counts()
     logs = []
     for step in range(steps):
-        if step == SEARCH_WARMUP:
+        if step == warmup:
             start.record()
         logs.append(trainer.search_step(train, val))
         if record:
@@ -1015,7 +1051,7 @@ def _search_run(trainer, train, val, steps: int = SEARCH_STEPS,
     end.record()
     torch.cuda.synchronize()
     return {"logs": logs, "launches": _counts(),
-            "ms": start.elapsed_time(end) / (steps - SEARCH_WARMUP),
+            "ms": start.elapsed_time(end) / (steps - warmup),
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
@@ -1528,6 +1564,396 @@ def phase_entry_points(dev, bank, phase7_ms: float, phase8_ms: float):
     return {"pretrain": pre["launches"], "entry": entry}
 
 
+# ----------------------------------------------------------------- phase 10
+
+YOLO_SEARCH = ROOT / "configs" / "yolo_search.yaml"
+YOLO_ISP = ROOT / "configs" / "yolo_isp.yaml"
+YOLO_TEST = ROOT / "configs" / "yolo_test.yaml"
+# Phase 10: detection-driven search, training and evaluation under the frozen
+# 80-class YOLOv3 at the configs' own geometry.  Cuts: synthetic_yolo frames
+# in place of the OnePlus folders (YOLO_FRAMES for the search, the batch for
+# training, YOLO_TEST_FRAMES for evaluation); the port's seeded YOLOv3 init,
+# written as a darknet file, in place of yolov3.weights; steps: the search
+# 3 then resumed to 4 of 40,000 through train.py and 3 in process, training
+# 4 of 8,000.
+YOLO_FRAMES = 16
+YOLO_SEARCH_STEPS, YOLO_SEARCH_RESUMED = 3, 4
+YOLO_INPROC_STEPS = 3
+YOLO_ISP_STEPS = 4
+YOLO_TEST_FRAMES = 4
+YOLO_CARD_SHAPE = (1, 256, 256, 3)
+# YOLOv3 on the card against the CPU, TF32 off: 75 f32 convs whose sums
+# cuDNN and the CPU take in other orders, each a relative rounding of about
+# 1e-7 of its output; the seeded init contracts the signal (weights
+# U(+-sqrt(1/fan_in)) scale its variance by about 1/3 a conv, the shortcuts
+# add it back), so the heads are of order 0.05 and their errors are
+# relative.  Held to 1e-4 of each head's largest magnitude: about 100x a
+# growth of 1e-7 a layer over 75 layers.
+YOLO_CARD_RTOL = 1e-4
+# The search, kernels vs plain forms, over YOLO_INPROC_STEPS second-order
+# steps (written before the first run).  The kernels differ from the plain
+# forms by rounding order, at most 2e-5 (bilateral) and 5e-5 (fast NLM) a
+# value, 0 (median), in candidates weighted 1/15 in each of 3 slots: an
+# output error of about 1e-5, of either sign from value to value, into the
+# detector.
+#  * Losses, relative: the YOLO loss (noobj_scale 100) is a sum of BCE over
+#    4 x 3 x (8^2 + 16^2 + 32^2) = 16,128 cells, each a smooth function of
+#    the frame through 75 contracting convs; errors of either sign average
+#    out, so it moves by far less than 1e-5 of itself; YOLO_LOSS_RTOL 1e-5.
+#  * Alphas: as phase 8, Adam moves an alpha by lr times a ratio of moments
+#    that a relative gradient error e of about 1e-4 moves by about e: 3 steps
+#    at lr 1e-4 part them by about 3e-8; YOLO_ALPHA_TOL 1e-5.
+#  * Theta: SGD moves theta by lr times the gradient, which the detection
+#    loss makes large (of order 1e3-1e4, against about 1 for phase 8's l2),
+#    so the parting scales with the move: e of it, 1e-4; held to
+#    YOLO_THETA_RTOL 1e-3 of the largest theta move.
+YOLO_LOSS_RTOL = 1e-5
+YOLO_ALPHA_TOL = 1e-5
+YOLO_THETA_RTOL = 1e-3
+# Training, kernels vs plain forms, over YOLO_ISP_STEPS Adam steps at lr
+# 1e-3: each logit moves by about lr a step whatever the gradient's scale,
+# and a relative gradient error of 1e-4 parts two runs by about
+# lr 1e-4 = 1e-7 a step; YOLO_LOGIT_TOL 1e-4 (phase 7's), losses as above.
+YOLO_LOGIT_TOL = 1e-4
+# test.py's detections of the first frame against an in-process decode and
+# NMS of its saved output frame on the same weights: the same convs on the
+# same card, predicted equal; cuDNN may take another algorithm in another
+# process (boxes 7.6e-6 px apart, of up to 1024 px, on an H100 80GB HBM3).
+# Held to 1e-4.
+YOLO_DETS_TOL = 1e-4
+
+
+def yolo_forward_flops(blocks, h: int, w: int) -> int:
+    """FP32 operations of one YoloNet forward on one h x w image: 2 per
+    multiply-add of each conv (Cin k^2 Cout per output pixel)."""
+    channels, sizes, flops = [3], [(h, w)], 0
+    for i, blk in enumerate(blocks):
+        t, (hh, ww) = blk["type"], sizes[-1]
+        if t == "convolutional":
+            s, k = blk["stride"], blk["size"]
+            hh, ww = -(-hh // s), -(-ww // s)
+            flops += 2 * channels[-1] * k * k * blk["filters"] * hh * ww
+            channels.append(blk["filters"])
+        elif t == "route":
+            idx = [l if l >= 0 else i + l for l in blk["layers"]]
+            channels.append(sum(channels[j + 1] for j in idx))
+            hh, ww = sizes[idx[0] + 1]
+        else:
+            if t == "upsample":
+                hh, ww = 2 * hh, 2 * ww
+            channels.append(channels[-1])
+        sizes.append((hh, ww))
+    return flops
+
+
+def write_yolo_weights(tmp: Path):
+    """The 80-class YOLOv3 from the port's init (seed 0), written in the
+    darknet format -> (blocks, path)."""
+    blocks = ycfg.yolov3_blocks(80)
+    net = init_yolo(blocks, torch.Generator().manual_seed(0))
+    path = tmp / "yolov3.weights"
+    save_darknet_weights(net, str(path))
+    return blocks, str(path)
+
+
+def phase_yolo_card_vs_cpu(dev, blocks, weights: str) -> None:
+    """load_darknet_weights at full size, then the forward on the card
+    against the CPU on one YOLO_CARD_SHAPE input."""
+    x = torch.rand(YOLO_CARD_SHAPE, generator=torch.Generator().manual_seed(5))
+    t0 = time.perf_counter()
+    card = load_darknet_weights(blocks, weights, device=dev)
+    load_s = time.perf_counter() - t0
+    cpu = load_darknet_weights(blocks, weights)
+    with torch.no_grad():
+        got = card(x.to(dev))
+        want = cpu(x)
+    worst = 0.0
+    for (g, _, _), (w, _, _) in zip(got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("YOLOv3 on the card: non-finite head")
+        worst = max(worst, float((g.cpu() - w).abs().max())
+                    / float(w.abs().max()))
+    line("phase 10 yolov3 card vs cpu", input=YOLO_CARD_SHAPE,
+         convs=len(card.conv_blocks()),
+         floats=sum(p.numel() for p in card.parameters()),
+         file_mib=f"{os.path.getsize(weights) / 2**20:.1f}",
+         load_s=f"{load_s:.2f}",
+         heads=[tuple(h.shape) for h, _, _ in got],
+         max_rel_diff=f"{worst:.3e}", rtol=YOLO_CARD_RTOL,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    if not worst <= YOLO_CARD_RTOL:
+        raise AssertionError(f"YOLOv3 card vs CPU: {worst} > {YOLO_CARD_RTOL}")
+
+
+def _yolo_options(path: Path, tmp: Path, weights: str,
+                  dataset: dict) -> dict:
+    """A yolo config as it stands, its dataset updated to synthetic frames
+    (`dataset`), the darknet file as its weights, the paths under tmp."""
+    opt = yaml.safe_load(path.read_text())
+    ds_key = "train" if "train" in opt["datasets"] else "test"
+    opt["datasets"][ds_key].update(mode="synthetic_yolo", **dataset)
+    opt["datasets"][ds_key].pop("dataroot", None)
+    opt["yolo"]["weights"] = weights
+    opt["path"] = {**(opt.get("path") or {}), "root": str(tmp)}
+    return opt
+
+
+def _yolo_batch(opt: dict, start: int, n: int, dev) -> dict:
+    """Frames start..start+n-1 of the options' synthetic_yolo dataset as a
+    batch on the card: noisy mosaics and labels."""
+    ds_opt = dict(opt["datasets"]["train"])
+    ds_opt.setdefault("seed", opt["train"]["manual_seed"] or 0)
+    ds = create_dataset(ds_opt)
+    samples = [ds[i] for i in range(start, start + n)]
+    return {k: torch.from_numpy(np.stack([s[k] for s in samples])).to(dev)
+            for k in ("noisy", "label")}
+
+
+def phase_yolo_search(dev, bank, tmp: Path, weights: str) -> dict:
+    """10a: configs/yolo_search.yaml through python -m
+    reconfigisp_tpu_torch.train (YOLO_SEARCH_STEPS, then resumed to
+    YOLO_SEARCH_RESUMED), then in process with the kernels and with the
+    plain forms; the argmax architecture served.  -> launches."""
+    total = {name: 0 for name in KERNELS}
+    dataset = {"n": YOLO_FRAMES}
+    for niter in (YOLO_SEARCH_STEPS, YOLO_SEARCH_RESUMED):
+        opt = _yolo_options(YOLO_SEARCH, tmp, weights, dataset)
+        opt["train"]["niter"] = niter
+        opt["path"]["pretrain_proxies"] = str(BANK)
+        run = run_cli("reconfigisp_tpu_torch.train", "--opt", _write_options(
+            tmp / f"yolo_search_{niter}.yaml", opt))
+        summary = _summary(run["stdout"])
+        steps_run = niter - (0 if niter == YOLO_SEARCH_STEPS
+                             else YOLO_SEARCH_STEPS)
+        expected = {name: 15 * steps_run for name in KERNELS}
+        line("phase 10a train.py darts_yolo", config="yolo_search.yaml",
+             niter=niter, steps=summary["steps"],
+             steps_run=summary["steps_run"], loss=f"{summary['loss']:.6f}",
+             val_loss=f"{summary['val_loss']:.6f}",
+             steady_s_per_iter=summary.get("steady_s_per_iter"),
+             compile_s=summary.get("compile_s"),
+             architecture=summary["architecture"],
+             launches=json.dumps(run["launches"]).replace(" ", ""),
+             peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+             process_s=f"{run['seconds']:.2f}")
+        if summary["steps"] != niter or summary["steps_run"] != steps_run \
+                or not math.isfinite(summary["loss"]) \
+                or run["launches"] != expected:
+            raise AssertionError(f"darts_yolo niter {niter}: {summary}, "
+                                 f"launches {run['launches']}")
+        if niter == YOLO_SEARCH_RESUMED and "resumed from " not in \
+                run["stdout"]:
+            raise AssertionError("darts_yolo did not resume")
+        for name in KERNELS:
+            total[name] += run["launches"][name]
+
+    opt = config.parse_dict(_yolo_options(YOLO_SEARCH, tmp, weights, dataset),
+                            root=str(tmp))
+    n, size = opt["datasets"]["train"]["batch_size"], \
+        opt["datasets"]["train"]["data_size"]
+    train = _yolo_batch(opt, 0, n, dev)
+    val = _yolo_batch(opt, n, n, dev)
+    detector = build_yolo_evaluator(opt["yolo"], dev)
+    criterion = make_yolo_criterion(detector, size)
+    runs = {}
+    for what, plain in (("kernels", False), ("plain", True)):
+        trainer = make_search_trainer(dev, bank, opt, plain=plain,
+                                      criterion=criterion, target_key="label")
+        run = _search_run(trainer, train, val, YOLO_INPROC_STEPS, warmup=1)
+        run["trainer"] = trainer
+        runs[what] = run
+        losses = [lg["loss"] for lg in run["logs"]]
+        line("phase 10a darts_yolo", run=what, batch=tuple(train["noisy"].shape),
+             steps=YOLO_INPROC_STEPS, ms_per_step=f"{run['ms']:.3f}",
+             peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+             loss=f"{losses[0]:.6f}->{losses[-1]:.6f}",
+             launches_per_step=json.dumps({k: v / YOLO_INPROC_STEPS for k, v
+                                           in run["launches"].items()})
+             .replace(" ", ""))
+        expected = {name: 0 if plain else 15 * YOLO_INPROC_STEPS
+                    for name in KERNELS}
+        if run["launches"] != expected or not all(
+                math.isfinite(v) for lg in run["logs"] for v in lg.values()):
+            raise AssertionError(f"darts_yolo {what}: {run['logs']}, "
+                                 f"launches {run['launches']}")
+    kern, ref = runs["kernels"], runs["plain"]
+    loss_diff = max(abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(kern["logs"], ref["logs"])
+                    for k in ("loss", "val_loss"))
+    kv, rv = kern["trainer"].variables, ref["trainer"].variables
+    start = make_search_trainer(dev, bank, opt).variables
+    alpha_diff = _max_diff(kv["alphas"], rv["alphas"])
+    theta_diff = _max_diff(kv["theta"], rv["theta"])
+    theta_move = _max_diff(kv["theta"], start["theta"])
+    line("phase 10a kernels vs plain", steps=YOLO_INPROC_STEPS,
+         max_loss_rel_diff=f"{loss_diff:.3e}", loss_rtol=YOLO_LOSS_RTOL,
+         max_alpha_diff=f"{alpha_diff:.3e}", alpha_tol=YOLO_ALPHA_TOL,
+         max_theta_diff=f"{theta_diff:.3e}",
+         theta_tol=f"{YOLO_THETA_RTOL * theta_move:.3e}",
+         max_alpha_move=f"{_max_diff(kv['alphas'], start['alphas']):.3e}",
+         max_theta_move=f"{theta_move:.3e}")
+    if not (loss_diff <= YOLO_LOSS_RTOL and alpha_diff <= YOLO_ALPHA_TOL
+            and theta_diff <= YOLO_THETA_RTOL * theta_move):
+        raise AssertionError("darts_yolo: kernels vs plain forms part")
+    for name in KERNELS:
+        total[name] += kern["launches"][name]
+
+    # the detector's part of a step: each of the 5 passes runs its forward
+    # and its input backward on the batch
+    x = torch.rand((n, size, size, 3), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(6))
+
+    def yolo_pass():
+        xs = x.clone().requires_grad_()
+        torch.autograd.grad(criterion(xs, train["label"]), xs)
+
+    pass_ms = event_ms(yolo_pass, reps=5)
+    flops = 2 * n * yolo_forward_flops(detector.blocks, size, size)
+    line("phase 10a yolov3 pass", batch=tuple(x.shape), ms=f"{pass_ms:.3f}",
+         tflop=f"{flops / 1e12:.4f}",
+         tflop_per_s=f"{flops / pass_ms / 1e9:.2f}",
+         passes_per_step=5,
+         share_of_step=f"{5 * pass_ms / kern['ms']:.4f}",
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+    arch = kern["trainer"].architecture()
+    pipe = load_pipeline(dev, arch, bank=bank)
+    with torch.inference_mode():
+        y = pipe(val["noisy"])
+        served_loss = float(criterion(y, val["label"]))
+    if tuple(y.shape) != (n, size, size, 3) or not bool(
+            torch.isfinite(y).all()) or not math.isfinite(served_loss):
+        raise AssertionError(f"{arch}: output {tuple(y.shape)}")
+    line("phase 10a architecture", arch=arch, out=tuple(y.shape),
+         range=f"{float(y.min()):.4f}..{float(y.max()):.4f}",
+         yolo_loss=f"{served_loss:.6f}")
+    return total
+
+
+def phase_yolo_training(dev, bank, tmp: Path, weights: str) -> dict:
+    """10b: configs/yolo_isp.yaml (batch 2 of 512x512, Adam lr 1e-3) on one
+    synthetic batch, YOLO_ISP_STEPS steps: its flagship with the kernels,
+    slice 2 with the kernels and with the plain forms.  -> the launches and
+    slice 2's checkpoint."""
+    opt = config.parse_dict(_yolo_options(YOLO_ISP, tmp, weights, {}),
+                            root=str(tmp))
+    data = opt["datasets"]["train"]
+    n, size = data["batch_size"], data["data_size"]
+    batch = _yolo_batch(opt, 0, n, dev)
+    criterion = make_yolo_criterion(build_yolo_evaluator(opt["yolo"], dev),
+                                    size)
+    use_proxy = config.network_uses_proxy(opt["network_G"])
+    flagship = opt["network_G"]["architecture"]
+    runs = {}
+    for arch, plain in ((flagship, False), (SLICE2, False), (SLICE2, True)):
+        trainer = make_trainer(dev, arch, use_proxy, bank, opt["train"], plain,
+                               criterion=criterion, target_key="label")
+        run = _train_run(trainer, batch, YOLO_ISP_STEPS, warmup=1)
+        run["trainer"] = trainer
+        runs[arch, plain] = run
+        mode = "plain" if plain else "kernels"
+        line("phase 10b isp_yolo", arch=arch, mode=mode,
+             batch=tuple(batch["noisy"].shape), steps=YOLO_ISP_STEPS,
+             ms_per_step=f"{run['ms']:.3f}",
+             peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+             eval_loss=f"{run['before']:.6f}->{run['after']:.6f}",
+             launches=json.dumps(run["launches"]).replace(" ", ""))
+        kernels = PATHS.get(arch, ()) if not plain else ()
+        expected = {name: YOLO_ISP_STEPS if name in kernels else 0
+                    for name in KERNELS}
+        if run["launches"] != expected or not all(
+                math.isfinite(v) for v in run["losses"]):
+            raise AssertionError(f"isp_yolo {arch} {mode}: {run['losses']}, "
+                                 f"launches {run['launches']}")
+        if not run["after"] < run["before"]:
+            raise AssertionError(f"isp_yolo {arch} {mode}: eval loss "
+                                 f"{run['before']} -> {run['after']}")
+    kern, ref = runs[SLICE2, False], runs[SLICE2, True]
+    diff = max(float(abs(kern["logits"][k] - ref["logits"][k]).max())
+               for k in ref["logits"])
+    moved = max(float(abs(v - kern["start_logits"][k]).max())
+                for k, v in kern["logits"].items())
+    loss_diff = max(abs(a - b) / abs(b)
+                    for a, b in zip(kern["losses"], ref["losses"]))
+    line("phase 10b kernels vs plain logits", arch=SLICE2,
+         max_abs_diff=f"{diff:.3e}", tol=YOLO_LOGIT_TOL,
+         max_logit_move=f"{moved:.3e}",
+         max_loss_rel_diff=f"{loss_diff:.3e}", loss_rtol=YOLO_LOSS_RTOL)
+    if not (diff <= YOLO_LOGIT_TOL and loss_diff <= YOLO_LOSS_RTOL):
+        raise AssertionError(f"isp_yolo: logits {diff}, losses "
+                             f"{kern['losses']} vs {ref['losses']}")
+    models = tmp / "experiments" / "yolo_isp"
+    kern["trainer"].save(str(models / "models"),
+                         str(models / "training_state"), 0)
+    return {"launches": kern["launches"],
+            "checkpoint": str(models / "models" / f"{YOLO_ISP_STEPS}_G.ckpt")}
+
+
+def phase_yolo_eval(dev, tmp: Path, weights: str, checkpoint: str) -> dict:
+    """10c: configs/yolo_test.yaml (whole 1024x1024 frames, conf_thres
+    0.005) through python -m reconfigisp_tpu_torch.test on
+    YOLO_TEST_FRAMES synthetic frames with 10b's slice 2 network; the first
+    frame's detections held against an in-process decode and NMS of its
+    output.  -> launches."""
+    opt = _yolo_options(YOLO_TEST, tmp, weights, {"n": YOLO_TEST_FRAMES})
+    opt["network_G"]["architecture"] = SLICE2
+    opt["path"]["pretrain_model_G"] = checkpoint
+    run = run_cli("reconfigisp_tpu_torch.test", "--opt",
+                  _write_options(tmp / "yolo_test.yaml", opt),
+                  without=("cv2",))
+    found = re.findall(r"^map=([0-9.]+)$", run["stdout"], re.M)
+    frame_ms = [float(v) for v in re.findall(
+        r"\] detections \d+ \(([0-9.]+) ms\)", run["stdout"])]
+    ds = opt["datasets"]["test"]
+    expected = {name: YOLO_TEST_FRAMES if name in PATHS[SLICE2] else 0
+                for name in KERNELS}
+    results = tmp / "results" / opt["name"]
+    frame = np.load(results / "0000.npy")
+    dets = np.load(results / "0000_dets.npy")
+    detector = build_yolo_evaluator(opt["yolo"], dev)
+    with torch.no_grad():
+        heads = detector(torch.from_numpy(frame)[None].to(dev).flip(-1))
+    want = ytrain.detections(heads, frame.shape[0], ds["conf_thres"])[0]
+    diff = float(np.abs(dets - want).max()) if dets.shape == want.shape \
+        else math.inf
+    line("phase 10c test.py isp_yolo", config="yolo_test.yaml", arch=SLICE2,
+         frames=YOLO_TEST_FRAMES, frame=tuple(frame.shape),
+         conf_thres=ds["conf_thres"], map=found[-1] if found else None,
+         detections=len(dets), ms_per_frame=",".join(f"{v:.3f}"
+                                                     for v in frame_ms),
+         dets_vs_in_process=f"{diff:.3e}", dets_tol=YOLO_DETS_TOL,
+         peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+         process_s=f"{run['seconds']:.2f}",
+         launches=json.dumps(run["launches"]).replace(" ", ""))
+    if len(found) != 1 or not math.isfinite(float(found[0])) \
+            or len(frame_ms) != YOLO_TEST_FRAMES \
+            or run["launches"] != expected or not diff <= YOLO_DETS_TOL \
+            or frame.shape != (ds["data_size"], ds["data_size"], 3):
+        raise AssertionError(f"yolo test.py: map {found}, frames {frame_ms}, "
+                             f"launches {run['launches']}, dets {diff}")
+    return run["launches"]
+
+
+def phase_yolo(dev, bank) -> dict:
+    """Phase 10: the detection path under the frozen YOLOv3; -> the
+    kernels' launches over 10a-10c."""
+    with tempfile.TemporaryDirectory() as root:
+        tmp = Path(root)
+        t0 = time.perf_counter()
+        blocks, weights = write_yolo_weights(tmp)
+        phase_yolo_card_vs_cpu(dev, blocks, weights)
+        search = phase_yolo_search(dev, bank, tmp, weights)
+        training = phase_yolo_training(dev, bank, tmp, weights)
+        evals = phase_yolo_eval(dev, tmp, weights, training["checkpoint"])
+        total = {name: search[name] + training["launches"][name]
+                 + evals[name] for name in KERNELS}
+        line("phase 10 launches", search=json.dumps(search).replace(" ", ""),
+             train=json.dumps(training["launches"]).replace(" ", ""),
+             eval=json.dumps(evals).replace(" ", ""),
+             seconds=f"{time.perf_counter() - t0:.2f}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1554,6 +1980,7 @@ def main() -> int:
     phase_latency(dev)
     search_launches, search_ms = phase_search(dev, bank)
     entry = phase_entry_points(dev, bank, train_ms[SLICE2], search_ms)
+    yolo_launches = phase_yolo(dev, bank)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -1563,6 +1990,7 @@ def main() -> int:
         "search_launches": search_launches[name],
         "pretrain_launches": entry["pretrain"][name],
         "entry_point_launches": entry["entry"][name],
+        "yolo_launches": yolo_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,6 +25,9 @@ weights_from_jax / weights_to_jax), and `darts_opt_state_from_jax` /
 `darts_opt_state_to_jax` the DARTS step's {"momentum", "adam_m", "adam_v",
 "adam_t"} (reconfigisp_tpu/search/darts.py:63-71), which the port holds in
 the same layout with tensors as leaves.
+
+For the detector, `yolo_weights_from_jax` / `yolo_weights_to_jax` carry the
+JAX YOLO weights list (HWIO convs) to and from a yolo/net.YoloNet (OIHW).
 """
 
 from __future__ import annotations
@@ -219,3 +222,41 @@ def darts_opt_state_to_jax(state: dict) -> dict:
             "adam_m": _arrays(state["adam_m"]),
             "adam_v": _arrays(state["adam_v"]),
             "adam_t": np.asarray(int(state["adam_t"]), np.int32)}
+
+
+def yolo_weights_from_jax(weights: list, net):
+    """The JAX package's YOLO weights (yolo/net.init_yolo's list, one entry
+    per block, None where a block has none; numpy leaves) -> installed into
+    YoloNet `net`, which is returned.  A conv's "w" is HWIO, the port's
+    weight OIHW; "bn" holds gamma, beta, mean and var, else "b" the bias."""
+    with torch.no_grad():
+        for i, blk in enumerate(net.blocks):
+            if blk["type"] != "convolutional":
+                continue
+            conv, tree = net.convs[str(i)], weights[i]
+            w = np.asarray(tree["w"], np.float32).transpose(3, 2, 0, 1)
+            conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+            fields = tree["bn"] if conv.bn else {"bias": tree["b"]}
+            for name, value in fields.items():
+                getattr(conv, name).copy_(torch.from_numpy(
+                    np.array(value, np.float32)))
+    return net
+
+
+def yolo_weights_to_jax(net) -> list:
+    """YoloNet `net` -> the JAX package's weights list, in numpy."""
+    out = []
+    for i, blk in enumerate(net.blocks):
+        if blk["type"] != "convolutional":
+            out.append(None)
+            continue
+        conv = net.convs[str(i)]
+        tree = {"w": conv.weight.detach().cpu().numpy().transpose(2, 3, 1, 0)
+                .copy()}
+        if conv.bn:
+            tree["bn"] = {name: getattr(conv, name).detach().cpu().numpy()
+                          .copy() for name in ("gamma", "beta", "mean", "var")}
+        else:
+            tree["b"] = conv.bias.detach().cpu().numpy().copy()
+        out.append(tree)
+    return out

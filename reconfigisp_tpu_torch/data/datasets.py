@@ -5,12 +5,13 @@ Counterpart of reconfigisp_tpu/data/datasets.py, kept as its own copy
 s7isp_rggb2bgr_dataset.py:20-129).  Samples are numpy, and bit-identical to
 the JAX package's for the same options, index and access count: every draw
 of the numpy generators is made in the same order, with the same seeds and
-casts.  The detection datasets (synthetic_yolo, OnePlus) come with the YOLO
-slice (ROADMAP item 7).
+casts.  The detection datasets (SyntheticDetectionDataset,
+OnePlusDetectionDataset, reference oneplus_rggb2obj_dataset.py:23-265)
+carry YOLO labels in place of the GT.
 
 Conventions (the reference's):
   * noisy input: single-channel RGGB mosaic, normalized to [0, 1] by the
-    sensor white level (16383 for 14-bit SID; 1023 for 10-bit S7);
+    sensor white level (16383 for 14-bit SID; 1023 for 10-bit S7/OnePlus);
   * GT: BGR in [0, 1];
   * random crops are RGGB-aligned: offsets snapped to even indices
     (sid...dataset.py:119-126).
@@ -27,9 +28,6 @@ import numpy as np
 import torch
 
 from reconfigisp_tpu_torch.data.backends import META_FILE, open_backend
-
-_YOLO_SLICE = ("the detection datasets come with the YOLO slice of the port "
-               "(ROADMAP item 7)")
 
 
 def _crop_rng(seed: int, idx: int, access: int, is_train: bool):
@@ -270,6 +268,41 @@ class SyntheticPlantedDataset(SyntheticRawDataset):
                 "gt": gt}
 
 
+class SyntheticDetectionDataset(SyntheticRawDataset):
+    """Raw Bayer -> detection targets: scenes hold bright rectangles whose
+    boxes are the labels (the hermetic analog of the OnePlus labelme-JSON
+    dataset, reference oneplus_rggb2obj_dataset.py:160-194).
+
+    Labels: (max_boxes, 6) rows [valid, cls, cx, cy, w, h] normalized, the
+    YOLO target layout (a fixed max_boxes in place of the reference's
+    variable-length collate, oneplus...py:207-229)."""
+
+    def __init__(self, n: int = 64, size: int = 64, max_boxes: int = 8,
+                 **kw):
+        super().__init__(n=n, size=size, **kw)
+        self.max_boxes = max_boxes
+
+    def __getitem__(self, idx: int) -> dict:
+        rng = np.random.default_rng(self.seed * 100003 + idx)
+        s = self.size
+        gt = self._scene(rng, s) * 0.4
+        labels = np.zeros((self.max_boxes, 6), np.float32)
+        n_obj = int(rng.integers(1, min(self.max_boxes, 4) + 1))
+        for k in range(n_obj):
+            h, w = rng.integers(s // 8, s // 3, 2)
+            y0 = int(rng.integers(0, s - h))
+            x0 = int(rng.integers(0, s - w))
+            gt[y0:y0 + h, x0:x0 + w] = rng.uniform(0.7, 1.0, 3)
+            labels[k] = [1.0, 0.0, (x0 + w / 2) / s, (y0 + h / 2) / s,
+                         w / s, h / s]
+        gt = np.clip(gt, 0, 1).astype(np.float32)
+        mosaic = self.mosaic_rggb(gt)
+        noisy = mosaic * self.gain + rng.normal(
+            0, self.noise_std, mosaic.shape).astype(np.float32)
+        return {"noisy": np.clip(noisy, 0, 1).astype(np.float32),
+                "gt": gt, "label": labels}
+
+
 class PairRecordDataset:
     """meta_info-indexed raw/GT pair dataset over any storage backend.
 
@@ -341,6 +374,144 @@ class PairRecordDataset:
                 "gt": np.ascontiguousarray(self._to01(gt, 65535.0))}
 
 
+# COCO class ids (reference oneplus_rggb2obj_dataset.py:46)
+ONEPLUS_CLASSES = {"person": 0, "car": 2, "bus": 5}
+
+
+class OnePlusDetectionDataset:
+    """Raw OnePlus mosaics + labelme-JSON boxes -> YOLO training samples.
+
+    Counterpart of OnePlusRggb2ObjDataset (reference
+    oneplus_rggb2obj_dataset.py:23-233): a uint16 PNG mosaic (10-bit) and a
+    sibling .json per frame; Bayer-aware per-plane resize to `desired`^2,
+    the content band centred between zero rows (:109-147,
+    utils/imaging.bayer_aware_resize); RGGB-aligned random crops re-drawn up
+    to `max_crop` times until a box survives the IoU >= 0.5 visibility
+    filter (:153-194), else the best crop drawn.  Labels are a fixed
+    (max_boxes, 6) array [valid, cls, cx, cy, w, h] normalized to the crop.
+    Eval tiles the padded frame: offsets evenly spaced over [0, d - s],
+    even-snapped, the last flush with the far edge, and __len__ enumerates
+    image x tile; with data_size == desired one tile is the whole frame.
+    """
+
+    def __init__(self, root: str, data_size: int = 256, *,
+                 desired: int = 1024, max_crop: int = 4, max_boxes: int = 16,
+                 white_level: float = 1023.0, seed: int = 0,
+                 is_train: bool = True,
+                 classes: Optional[dict] = None):
+        import glob
+        self.root = root
+        self.img_files = sorted(glob.glob(os.path.join(root, "*.png")))
+        self.json_files = sorted(glob.glob(os.path.join(root, "*.json")))
+        if len(self.img_files) != len(self.json_files) or not self.img_files:
+            raise ValueError(
+                f"{root}: need matching *.png / *.json files "
+                f"({len(self.img_files)} vs {len(self.json_files)})")
+        self.data_size = data_size
+        self.desired = desired
+        self.max_crop = max_crop
+        self.max_boxes = max_boxes
+        self.white_level = white_level
+        self.seed = seed
+        self.is_train = is_train
+        self.classes = classes or ONEPLUS_CLASSES
+        self._access = _AccessCounter()
+        if not is_train and data_size < desired:
+            k = int(np.ceil(desired / data_size)) + 1
+            offs = sorted({int(o) // 2 * 2 for o in
+                           np.linspace(0, desired - data_size, k)})
+            self._eval_tiles = [(r, c) for r in offs for c in offs]
+        else:
+            self._eval_tiles = [(0, 0)]
+
+    def __len__(self):
+        n_tiles = 1 if self.is_train else len(self._eval_tiles)
+        return len(self.img_files) * n_tiles
+
+    def _load_resized(self, idx: int):
+        """-> (mosaic01 (D, D, 1), ratio_h, ratio_w, top_pad)."""
+        import cv2
+        from reconfigisp_tpu_torch.utils.imaging import bayer_aware_resize
+        img = cv2.imread(self.img_files[idx], cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise FileNotFoundError(self.img_files[idx])
+        oh, ow = img.shape[:2]
+        mosaic01 = img.astype(np.float32) / self.white_level
+        resized, (th, tw) = bayer_aware_resize(
+            mosaic01, self.desired, return_extent=True)
+        top = (self.desired - th) // 2 // 2 * 2
+        if top:  # centre the content band (the reference pads top+bottom)
+            shifted = np.zeros_like(resized)
+            shifted[top:top + th] = resized[:th]
+            resized = shifted
+        return resized, th / oh, tw / ow, top
+
+    def _boxes(self, idx: int):
+        import json
+        with open(self.json_files[idx]) as f:
+            label = json.load(f)
+        out = []
+        for shape in label.get("shapes", []):
+            if shape.get("label") not in self.classes:
+                continue
+            pts = np.asarray(shape["points"], np.float64)
+            out.append((self.classes[shape["label"]],
+                        pts[:, 0].min(), pts[:, 1].min(),
+                        pts[:, 0].max(), pts[:, 1].max()))
+        return out
+
+    def __getitem__(self, idx: int) -> dict:
+        n_tiles = 1 if self.is_train else len(self._eval_tiles)
+        img_idx, tile_idx = idx // n_tiles, idx % n_tiles
+        mosaic, rh, rw, top = self._load_resized(img_idx)
+        raw_boxes = self._boxes(img_idx)
+        s = self.data_size
+        rng = _crop_rng(self.seed, img_idx,
+                        self._access.next_for(idx), self.is_train)
+        d = self.desired
+
+        # the best crop over the draws: most surviving boxes, ties (the
+        # all-failed case among them) broken by the highest box visibility
+        best = (mosaic[:s, :s], np.zeros((self.max_boxes, 6), np.float32))
+        best_score = (-1, -1.0)
+        for _ in range(self.max_crop if self.is_train else 1):
+            if self.is_train:
+                r0 = int(rng.integers(min(top, d - s), d - s + 1)) // 2 * 2
+                c0 = int(rng.integers(0, d - s + 1)) // 2 * 2
+            else:
+                r0, c0 = self._eval_tiles[tile_idx]
+            labels = np.zeros((self.max_boxes, 6), np.float32)
+            k = 0
+            max_vis = 0.0
+            for cls, x0, y0, x1, y1 in raw_boxes:
+                # frame coords -> resized+padded coords -> crop coords
+                xa, xb = x0 * rw - c0, x1 * rw - c0
+                ya, yb = y0 * rh + top - r0, y1 * rh + top - r0
+                xav, xbv = np.clip([xa, xb], 0, s - 1)
+                yav, ybv = np.clip([ya, yb], 0, s - 1)
+                area = (xb - xa) * (yb - ya)
+                vis = (xbv - xav) * (ybv - yav)
+                if area <= 0:
+                    continue
+                max_vis = max(max_vis, float(vis / area))
+                if vis / area < 0.5:  # IoU >= 0.5 filter
+                    continue
+                if k < self.max_boxes:
+                    labels[k] = [1.0, float(cls),
+                                 (xav + xbv) / 2 / s, (yav + ybv) / 2 / s,
+                                 (xbv - xav) / s, (ybv - yav) / s]
+                    k += 1
+            crop = mosaic[r0:r0 + s, c0:c0 + s]
+            if (k, max_vis) > best_score:
+                best = (crop, labels)
+                best_score = (k, max_vis)
+            if k > 0:
+                break
+        crop, labels = best
+        return {"noisy": np.ascontiguousarray(crop, np.float32),
+                "label": labels}
+
+
 def create_dataset(dataset_opt: dict):
     """Factory keyed on `mode` (reference codes/data/__init__.py:33-53)."""
     mode = dataset_opt.get("mode", "synthetic")
@@ -361,10 +532,27 @@ def create_dataset(dataset_opt: dict):
             shot=dataset_opt.get("noise_shot", 0.08) or 0.08,
             read=dataset_opt.get("noise_read", 0.02) or 0.02,
             seed=dataset_opt.get("seed", 0) or 0)
-    if mode in ("synthetic_yolo", "SyntheticYolo") or mode.startswith(
-            "OnePlus"):
-        raise NotImplementedError(f"dataset mode {mode!r}: {_YOLO_SLICE}")
+    if mode in ("synthetic_yolo", "SyntheticYolo"):
+        # frame_size lets test configs emit frames larger than data_size:
+        # the split-mode regime (merged frame != configured crop size)
+        return SyntheticDetectionDataset(
+            n=dataset_opt.get("n", 64) or 64,
+            size=(dataset_opt.get("frame_size")
+                  or dataset_opt.get("data_size", 64) or 64),
+            seed=dataset_opt.get("seed", 0) or 0)
     seed = dataset_opt.get("seed", 0) or 0
+    if mode.startswith("OnePlus"):
+        desired = dataset_opt.get("desired_size", 1024) or 1024
+        # `data_size: ~` means the whole image in the reference's test ymls
+        # (options/test/yolo_test.yml:17): for OnePlus the full resized
+        # frame (`desired`), not the 256 training default
+        return OnePlusDetectionDataset(
+            dataset_opt["dataroot"],
+            dataset_opt.get("data_size") or (256 if is_train else desired),
+            desired=desired,
+            max_crop=dataset_opt.get("max_crop", 4) or 4,
+            max_boxes=dataset_opt.get("max_boxes", 16) or 16,
+            seed=seed, is_train=is_train)
     if mode.startswith(("SID", "S7ISP", "Folder")):
         white = 16383.0 if mode.startswith("SID") else 1023.0
         root = dataset_opt["dataroot"]

@@ -5,15 +5,17 @@ Counterpart of reconfigisp_tpu/search/trainer.py:
   DartsTrainer   <- DartsModel   (darts_model.py:19-330) + train.py loop
   DartsFtTrainer <- DartsFtModel (darts_ft_model.py:20-368) + train_ft.py
   run_training   <- run_training (reference codes/train.py:58-301, train_ft.py)
+  make_yolo_criterion, build_yolo_evaluator <- the same (reference
+                 darts_yolo_model.py:37-40,130-137): models darts_yolo and
+                 isp_yolo train under a frozen YOLOv3's detection loss
 IspTrainer's Pipeline module holds its state and torch.optim.Adam updates it
 in place; the search trainers hold the supernet's variables and the DARTS
 state as dicts that search/darts.py's step replaces each step.  Checkpoints
 hold the JAX layout (convert.state_to_jax, convert.adam_state_to_jax,
 convert.supernet_variables_to_jax, convert.darts_opt_state_to_jax), so the
 JAX package resumes what these trainers save, and the reverse.  Not ported
-yet (ROADMAP.md): data-parallel training (the JAX trainers' `mesh`, DDP),
-the search's K-step dispatch (`steps_per_dispatch`, `flush`) and the YOLO
-criterion (model darts_yolo).
+yet (ROADMAP.md): data-parallel training (the JAX trainers' `mesh`, DDP) and
+the search's K-step dispatch (`steps_per_dispatch`, `flush`).
 """
 
 from __future__ import annotations
@@ -35,9 +37,6 @@ from reconfigisp_tpu_torch.utils import checkpoint, losses
 from reconfigisp_tpu_torch.utils.logging_utils import (
     MetricsLogger, setup_logger)
 from reconfigisp_tpu_torch.utils.schedule import make_schedule
-
-_YOLO_SLICE = ("the YOLO criterion comes with the YOLO slice of the port "
-               "(ROADMAP item 7)")
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -415,10 +414,60 @@ def dist_mesh(batch_size: int, device: torch.device) -> None:
         "not ported yet (ROADMAP item 8); make one device visible")
 
 
-def _make_val_probe(opt, dataset, trainer, n_samples: int = 2):
+def make_yolo_criterion(net, img_size: int, **loss_kw) -> Callable:
+    """Frozen-YOLOv3 detection objective (reference
+    darts_yolo_model.py:130-137): BGR -> RGB before the detector, whose
+    weights take no gradient (yolo/net.frozen), so the loss differentiates
+    the ISP output alone.  `latency` is ignored, as the JAX package ignores
+    it: darts_yolo has no latency term.  loss_kw forwards obj_scale /
+    noobj_scale: match the balance the evaluator was trained with
+    (yolo/train.py)."""
+    from reconfigisp_tpu_torch.yolo.loss import yolo_loss
+    from reconfigisp_tpu_torch.yolo.net import frozen
+
+    frozen(net)
+
+    def criterion(pred_bgr, labels, latency=None, **kw):
+        return yolo_loss(net(pred_bgr.flip(-1)), labels, img_size, **loss_kw)
+
+    return criterion
+
+
+def build_yolo_evaluator(yolo_opt: Optional[dict], device=None):
+    """The frozen YoloNet the options describe, on `device` (cuda unless
+    "cpu" is named): cfg "yolov3" (the full graph), "tiny_test" (the
+    miniature test graph, the default) or a darknet .cfg path, `classes`
+    (1 by default), and optional darknet `weights`.  Without weights it is
+    the port's own seeded init, init_yolo with a torch.Generator of seed 7;
+    that is not the JAX package's PRNGKey(7) init, so runs that must agree
+    with JAX share one darknet file."""
+    from reconfigisp_tpu_torch.yolo import cfg as ycfg
+    from reconfigisp_tpu_torch.yolo.net import (
+        frozen, init_yolo, load_darknet_weights)
+
+    yolo_opt = yolo_opt or {}
+    kind = yolo_opt.get("cfg", "tiny_test")
+    n_cls = yolo_opt.get("classes", 1) or 1
+    if kind == "yolov3":
+        blocks = ycfg.yolov3_blocks(num_classes=n_cls)
+    elif kind == "tiny_test":
+        blocks = ycfg.yolov3_tiny_test_blocks(num_classes=n_cls)
+    else:
+        blocks = ycfg.parse_cfg(kind)
+    dev = resolve_device(device)
+    if yolo_opt.get("weights"):
+        net = load_darknet_weights(blocks, yolo_opt["weights"], device=dev)
+    else:
+        net = init_yolo(blocks, torch.Generator().manual_seed(7), device=dev)
+    return frozen(net)
+
+
+def _make_val_probe(opt, dataset, trainer, is_yolo: bool,
+                    n_samples: int = 2):
     """Periodic validation probe: writes in|out|gt image strips under
     path.val_images and returns the val PSNR (reference train.py:218-297),
-    and the criterion on the probe samples where the trainer has a
+    none for a detection run, whose samples' `gt` is the scene, not its
+    target; and the criterion on the probe samples where the trainer has a
     loss-only eval.  The samples are drawn once, here (see
     _probe_access_slack)."""
     from reconfigisp_tpu_torch.utils.imaging import tensor2bgr
@@ -458,7 +507,7 @@ def _make_val_probe(opt, dataset, trainer, n_samples: int = 2):
             x = trainer._tensor(s["noisy"])[None]
             y = torch.clamp(fwd(x)[0], 0.0, 1.0).cpu().numpy()
             gt = s.get("gt")
-            if gt is not None:
+            if gt is not None and not is_yolo:
                 psnrs.append(float(psnr_fn(torch.from_numpy(y),
                                            torch.from_numpy(gt))))
             if val_dir:
@@ -568,16 +617,15 @@ class _Trace:
 def run_training(opt: dict, *, max_iters: Optional[int] = None,
                  device=None) -> dict:
     """End-to-end training loop (reference codes/train.py:58-301 and
-    train_ft.py; the JAX package's run_training) for models isp, darts and
-    darts_ft -> a summary dict with the JAX package's keys.  Runs on
-    `device`, else the options' `device`, else cuda; raises without CUDA
-    unless "cpu" is named.  Rank 0 of world 1 until DDP is ported."""
+    train_ft.py; the JAX package's run_training) for models isp, darts,
+    darts_ft and the detection-driven darts_yolo and isp_yolo -> a summary
+    dict with the JAX package's keys.  Runs on `device`, else the options'
+    `device`, else cuda; raises without CUDA unless "cpu" is named.  Rank 0
+    of world 1 until DDP is ported."""
     from reconfigisp_tpu_torch.data import create_dataset
 
     model = opt["model"] or ""
-    if "yolo" in model:
-        raise NotImplementedError(f"model {model!r}: {_YOLO_SLICE}")
-    if model not in ("isp", "darts", "darts_ft"):
+    if model not in ("isp", "darts", "darts_ft", "darts_yolo", "isp_yolo"):
         raise ValueError(f"unknown model {model!r}")
     dev = resolve_device(device if device is not None else opt.get("device"))
     name = opt.get("name", "run")
@@ -618,17 +666,27 @@ def run_training(opt: dict, *, max_iters: Optional[int] = None,
                                    "latency_table.json"), "w") as f:
                 json.dump(table, f, indent=1)
 
-    run = _run_search if model in ("darts", "darts_ft") else _run_isp
+    # the detection objective: a frozen YOLOv3 scores the ISP output
+    # against the samples' "label" boxes
+    criterion, target_key = None, "gt"
+    if "yolo" in model:
+        img_size = dataset_opt.get("data_size", 64) or 64
+        criterion = make_yolo_criterion(
+            build_yolo_evaluator(opt.get("yolo"), dev), img_size)
+        target_key = "label"
+
+    run = _run_search if model.startswith("darts") else _run_isp
     trainer, summary = run(opt, dataset, batch_size, niter, seed, generator,
-                           dev, resume, logger, metrics)
+                           dev, resume, logger, metrics,
+                           criterion=criterion, target_key=target_key)
     metrics.close()
     summary["steps"] = trainer.step_idx
     return summary
 
 
 def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
-                resume, logger, metrics):
-    """The darts and darts_ft branch of run_training."""
+                resume, logger, metrics, *, criterion, target_key):
+    """The darts, darts_ft and darts_yolo branch of run_training."""
     from reconfigisp_tpu_torch import config
     from reconfigisp_tpu_torch.data import create_search_loaders
     from reconfigisp_tpu_torch.data.datasets import set_access_base
@@ -641,7 +699,8 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
                                  opt.get("proxy_ft_params") or {},
                                  generator=generator)
     else:
-        trainer = DartsTrainer(net, train_opt, generator=generator)
+        trainer = DartsTrainer(net, train_opt, generator=generator,
+                               criterion=criterion, target_key=target_key)
 
     # resume if a training state exists
     start_epoch = 0
@@ -681,7 +740,8 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
     print_freq = logger_opt.get("print_freq", 10)
     save_freq = logger_opt.get("save_checkpoint_freq")
     val_freq = logger_opt.get("val_freq")
-    probe = _make_val_probe(opt, dataset, trainer)
+    probe = _make_val_probe(opt, dataset, trainer,
+                            is_yolo=target_key == "label")
     trace = _Trace(train_opt.get("trace_steps"),
                    os.path.join(paths.get("experiments_root") or ".", "trace"),
                    dev, logger)
@@ -751,9 +811,9 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
 
 
 def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
-             logger, metrics):
-    """The isp branch of run_training: step-2 training of a fixed
-    pipeline."""
+             logger, metrics, *, criterion, target_key):
+    """The isp and isp_yolo branch of run_training: step-2 training of a
+    fixed pipeline."""
     from reconfigisp_tpu_torch.config import network_uses_proxy
     from reconfigisp_tpu_torch.data import create_loader
     from reconfigisp_tpu_torch.data.datasets import set_access_base
@@ -765,7 +825,8 @@ def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
                     use_proxy=network_uses_proxy(net_opt), device=dev,
                     generator=generator)
     trainer = IspTrainer(pipe, train_opt,
-                         train_weights=bool(train_opt.get("train_weights")))
+                         train_weights=bool(train_opt.get("train_weights")),
+                         criterion=criterion, target_key=target_key)
     # pretrained module weights: the shared bank, then per-step overrides
     # (reference isp_universal.py:169-176)
     if paths.get("pretrain_proxies"):
@@ -798,7 +859,8 @@ def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
     print_freq = logger_opt.get("print_freq", 10)
     save_freq = logger_opt.get("save_checkpoint_freq")
     val_freq = logger_opt.get("val_freq")
-    probe = _make_val_probe(opt, dataset, trainer)
+    probe = _make_val_probe(opt, dataset, trainer,
+                            is_yolo=target_key == "label")
     # the same fixed samples scored before and after training
     start_probe = {f"{k}_start": v for k, v in probe(0).items()
                    if k in ("probe_loss", "val_psnr")}

@@ -6,8 +6,12 @@ intermediates, PSNR and SSIM per frame and their min/max/mean/std, and with
 `patch_size` / `patch_stride` in the dataset options the feathered tiling
 of parallel/tiling.py.  `precision: bf16` sets the CNN storage
 (precision.py) and `path.pretrain_model_G` loads a network checkpoint of
-either package.  The YOLO evaluation comes with the YOLO slice (ROADMAP
-item 7).
+either package.  A detection model (`model: *yolo*`) scores each output
+frame with the frozen YOLOv3 of the `yolo` options in place of PSNR: decode
+at the frame's own height, NMS at the dataset's `conf_thres`, the frame's
+label boxes, then AP per class; it prints `map=` and keeps each frame's
+detections, (D, 7) [x1, y1, x2, y2, conf, cls_conf, cls], as
+<stem>_dets.npy.
 
 Images go under path.results_root: the output and the input|intermediates|GT
 strip as PNGs through cv2, as in the JAX package; where cv2 does not import,
@@ -66,9 +70,6 @@ def main(argv=None) -> int:
     from reconfigisp_tpu_torch.utils.metrics import ssim as ssim_fn
 
     opt = config.parse(args.opt, is_train=False)
-    if "yolo" in (opt["model"] or ""):
-        raise NotImplementedError("the YOLO evaluation comes with the YOLO "
-                                  "slice of the port (ROADMAP item 7)")
     dev = resolve_device(args.device or opt.get("device"))
     paths = opt["path"]
     logger = setup_logger("base", paths.get("log"), f"test_{opt['name']}")
@@ -95,6 +96,14 @@ def main(argv=None) -> int:
     out_dir = paths.get("results_root")
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
+    is_yolo = "yolo" in (opt["model"] or "")
+    if is_yolo:
+        from reconfigisp_tpu_torch.search.trainer import build_yolo_evaluator
+        from reconfigisp_tpu_torch.yolo import train as ytrain
+        detector = build_yolo_evaluator(opt["yolo"], dev)
+        conf_thres = ds_opt.get("conf_thres", 0.5) or 0.5
+        all_dets, all_gts, all_tcls = [], [], []
+
     save_strips = bool(ds_opt.get("save_strips", True))
     psnrs, ssims = [], []
     n = len(dataset) if args.max_images is None \
@@ -119,7 +128,21 @@ def main(argv=None) -> int:
             sync()
             ms = 1e3 * (time.perf_counter() - t0)
             gt = sample.get("gt")
-            if gt is not None:
+            dets = None
+            if is_yolo:
+                # decode at the frame fed to the detector: in split mode it
+                # can be larger than data_size, and the configured size
+                # would mis-scale every box
+                frame_h, frame_w = int(y.shape[1]), int(y.shape[2])
+                dets = ytrain.detections(detector(y.float().flip(-1)),
+                                         frame_h, conf_thres)[0]
+                gtb, tcls = ytrain.label_boxes(sample["label"], frame_h,
+                                               frame_w)
+                all_dets.append(dets)
+                all_gts.append(gtb)
+                all_tcls.extend(tcls)
+                logger.info(f"[{i}] detections {len(dets)} ({ms:.3f} ms)")
+            elif gt is not None:
                 g = torch.from_numpy(np.asarray(gt, np.float32)[None]).to(dev)
                 p = float(psnr_fn(y, g)[0])
                 s = float(ssim_fn(y, g)[0])
@@ -138,6 +161,8 @@ def main(argv=None) -> int:
                               for p in pieces] + [np.asarray(gt)]
                     strip = np.concatenate(pieces, axis=1)
                 _write(out_dir, f"{i:04d}", y[0].float().cpu().numpy(), strip)
+                if dets is not None:
+                    np.save(os.path.join(out_dir, f"{i:04d}_dets.npy"), dets)
     if psnrs:
         arr = np.asarray(psnrs)
         # min/max/mean/std summary (reference test.py:101-107)
@@ -145,6 +170,15 @@ def main(argv=None) -> int:
                     f"mean {arr.mean():.3f} std {arr.std():.3f}")
         logger.info(f"SSIM mean {np.mean(ssims):.4f}")
         print(f"psnr_mean={arr.mean():.4f}", flush=True)
+    if is_yolo:
+        out = ytrain.score(all_dets, all_gts, all_tcls)
+        if out is None:
+            logger.info("no detections above threshold")
+            print("map=0.0", flush=True)
+        else:
+            logger.info(f"mAP {out['mAP']:.4f} P {out['precision'].mean():.3f} "
+                        f"R {out['recall'].mean():.3f}")
+            print(f"map={out['mAP']:.4f}", flush=True)
     return 0
 
 

@@ -1,9 +1,9 @@
 """Training / search CLI of the port.
 
 Counterpart of the repo's train.py (reference codes/train.py:58-301 and
-train_ft.py): one entry point for models isp, darts and darts_ft, reading
-the same configs/*.yaml through the port's config.parse and running
-search.run_training.  It runs on the GPU unless `--device cpu` is given, and
+train_ft.py): one entry point for models isp, darts, darts_ft, darts_yolo
+and isp_yolo, reading the same configs/*.yaml through the port's
+config.parse and running search.run_training.  It runs on the GPU unless `--device cpu` is given, and
 exits with an error when CUDA is absent and the CPU was not asked for.  The
 JAX CLI's --platform (choose a JAX backend) and --multihost (start
 jax.distributed) have no counterpart here: --device replaces the first, and

@@ -1,7 +1,8 @@
 """The bilateral, median and fast-NLM CUDA kernels against their plain
 PyTorch forms, on the card, forward and backward, a few steps of step-2
 training through them, the supernet and a second-order DARTS step through them,
-and the train and test CLIs on the card.
+the train and test CLIs on the card, and the YOLOv3 evaluator's forward and
+criterion gradient on the card against the CPU.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs alone:
@@ -447,3 +448,63 @@ def test_test_cli_on_cuda_one_frame(cuda, tmp_path):
         got = cv2.imread(str(frames[0]), cv2.IMREAD_UNCHANGED)
         assert int(np.abs(got.astype(int) - np.clip(
             np.round(want * 255), 0, 255).astype(int)).max()) <= 1
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """True f32 convolutions for the test's length."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield cuda
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("kind", ["tiny_test", "yolov3"])
+def test_yolo_forward_on_cuda_follows_the_cpu(no_tf32, kind):
+    """YoloNet on the card against the CPU, one seeded init, TF32 off: every
+    head within 1e-4 of its largest magnitude (chip_smoke.YOLO_CARD_RTOL
+    and its reason), the full 80-class graph at 128x128."""
+    from reconfigisp_tpu_torch.yolo import cfg as ycfg
+    from reconfigisp_tpu_torch.yolo.net import init_yolo
+    blocks = (ycfg.yolov3_blocks(80) if kind == "yolov3"
+              else ycfg.yolov3_tiny_test_blocks(2))
+    size = 128 if kind == "yolov3" else 64
+    cpu = init_yolo(blocks, torch.Generator().manual_seed(1))
+    card = init_yolo(blocks, torch.Generator().manual_seed(1), device=no_tf32)
+    x = torch.rand((2, size, size, 3), generator=torch.Generator()
+                   .manual_seed(2))
+    with torch.no_grad():
+        got, want = card(x.to(no_tf32)), cpu(x)
+    for (g, _, _), (w, _, _) in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
+def test_yolo_criterion_gradient_on_cuda_follows_the_cpu(no_tf32):
+    """The frozen tiny_test criterion's loss and input gradient on the card
+    against the CPU, TF32 off: the loss within 1e-5 relative, the gradient
+    within 1e-4 of its largest value (tests/test_torch_yolo.py's tolerances
+    against JAX); several boxes on one cell, whose targets the card writes
+    with unique indices."""
+    from reconfigisp_tpu_torch.search.trainer import make_yolo_criterion
+    from reconfigisp_tpu_torch.yolo import cfg as ycfg
+    from reconfigisp_tpu_torch.yolo.net import init_yolo
+    blocks = ycfg.yolov3_tiny_test_blocks(1)
+    rng = np.random.default_rng(5)
+    x = rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    lab = np.zeros((2, 8, 6), np.float32)
+    lab[:, :5] = [1, 0, 0.5, 0.5, 0.25, 0.25]
+    lab[:, :5, 2:4] += rng.uniform(0, 0.05, (2, 5, 2)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", no_tf32):
+        net = init_yolo(blocks, torch.Generator().manual_seed(3), device=dev)
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        loss = make_yolo_criterion(net, 64)(xt, torch.from_numpy(lab).to(dev))
+        (g,) = torch.autograd.grad(loss, xt)
+        out[str(dev)] = (float(loss.detach()), g.cpu())
+    (lc, gc), (lg, gg) = out["cpu"], out[str(no_tf32)]
+    assert lg == pytest.approx(lc, rel=1e-5)
+    assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())

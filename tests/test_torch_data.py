@@ -173,8 +173,9 @@ def test_folder_dataset_bit_identical(tmp_path, data_size, is_train):
 
 
 def test_create_dataset_modes(tmp_path):
-    """The factory picks the same class with the same settings; the
-    detection modes raise, naming the YOLO slice."""
+    """The factory picks the same class with the same settings, the
+    detection modes too; OnePlus on a folder without frames raises in
+    both."""
     root = str(_write_records(tmp_path / "rec", backends.PackedPairWriter))
     folder = str(_write_folder(tmp_path / "folder"))
     for opt in ({"mode": "synthetic", "n": 6, "data_size": 16, "seed": 2},
@@ -190,9 +191,14 @@ def test_create_dataset_modes(tmp_path):
         np.testing.assert_array_equal(sa["noisy"], sb["noisy"])
         np.testing.assert_allclose(sa["gt"], sb["gt"], rtol=0,
                                    atol=PLANTED_GT_TOL)
-    for mode in ("synthetic_yolo", "OnePlus_Records"):
-        with pytest.raises(NotImplementedError, match="YOLO"):
-            datasets.create_dataset({"mode": mode, "dataroot": folder})
+    opt = {"mode": "synthetic_yolo", "n": 3, "data_size": 16, "seed": 2}
+    a, b = datasets.create_dataset(opt), jdatasets.create_dataset(opt)
+    assert type(a).__name__ == type(b).__name__ == "SyntheticDetectionDataset"
+    for k in ("noisy", "gt", "label"):
+        np.testing.assert_array_equal(a[2][k], b[2][k])
+    for factory in (datasets.create_dataset, jdatasets.create_dataset):
+        with pytest.raises(ValueError, match="matching"):
+            factory({"mode": "OnePlus_Records", "dataroot": folder})
     with pytest.raises(ValueError, match="unknown dataset mode"):
         datasets.create_dataset({"mode": "nope"})
 
