@@ -37,7 +37,7 @@ Phases, one line each:
      steps each from the same start with the kernels and with the plain
      forms, the launches counted; the loss must fall and the two runs'
      losses and logits agree.  Then each kernel's gradient through its
-     autograd Function against the plain form's: bit for bit where the
+     custom op's autograd against the plain form's: bit for bit where the
      backward is direct (the training batch and the search batch
      4x48x48x3), within STRIP_TOL where it goes by strips;
   8. step-1 search: the per-op latency table at 1024x1024 (native and
@@ -76,7 +76,21 @@ Phases, one line each:
      whole 1024x1024 frames through the test CLI with (b)'s network, map=
      printed, the first frame's detections held against an in-process
      decode and NMS.  YOLO_FRAMES and the step counts below it list the
-     cuts.
+     cuts;
+ 11. the deployment path, from a camera file to a served frame: (a) build
+     native/rawproc.cpp with g++ and hold its four functions against their
+     numpy forms on a 2848x4256 uint16 frame from seed 0; (b) write two
+     SID-size 14-bit DNG pairs from seed 0, read them back bit-exact, and
+     ingest them with process_raw_pairs into packed records of 512x512
+     patches and of whole frames, MB/s printed; (c) export slice 2 with
+     the tiled engine at 1x2848x4256x1 (patch 512, stride 480, chunk 8),
+     f32 and bf16 storage, save it, then load and serve the ingested frame
+     in a fresh process that imports deploy alone, its launches counted
+     from 0, held against make_serving_fn within ARTIFACT_TOL with the
+     same launches, ms a frame of both; (d) the flagship exported
+     whole-frame with a symbolic batch, served at batch 1 and 2, and slice
+     1 exported whole-frame and served in this process, its bilateral
+     launches counted.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -105,14 +119,18 @@ import torch.nn.functional as F
 import yaml
 
 from reconfigisp_tpu_torch import Pipeline, config, convert, pool, precision
-from reconfigisp_tpu_torch.data import create_dataset
+from reconfigisp_tpu_torch.data import SyntheticRawDataset, create_dataset, dng
 from reconfigisp_tpu_torch.data.backends import PackedPairWriter
-from reconfigisp_tpu_torch.deploy import make_serving_fn
+from reconfigisp_tpu_torch.data.preprocessing import process_raw_pairs
+from reconfigisp_tpu_torch.deploy import (
+    export_pipeline, make_serving_fn, save_artifact)
+from reconfigisp_tpu_torch.deploy import load_pipeline as load_artifact
+from reconfigisp_tpu_torch.native import rawproc
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
-from reconfigisp_tpu_torch.parallel.tiling import tile_positions
+from reconfigisp_tpu_torch.parallel.tiling import feather_mask, tile_positions
 from reconfigisp_tpu_torch.ops import color, demosaic, denoise
 from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.search import DartsFtTrainer, DartsTrainer, IspTrainer
@@ -913,7 +931,7 @@ def phase_training(dev, bank):
 
 
 def phase_gradients(dev) -> None:
-    """Each kernel's gradient through its autograd Function against the
+    """Each kernel's gradient through its custom op's autograd against the
     plain form's autograd, for x and params, of sum(k(x, p) g): at the
     training batch, where the backward is direct, bit for bit; at a
     1024-row frame, radius 7, where it goes by strips, within STRIP_TOL."""
@@ -1224,19 +1242,25 @@ sys.exit(code)
 """
 
 
-def run_cli(module: str, *args: str, without=(), timeout: int = 600) -> dict:
-    """`python -m module args` in a subprocess from the checkout's root,
-    the modules `without` unimportable there -> {"stdout", "launches",
-    "peak_bytes", "seconds"}; raises on a non-zero exit."""
+def _child_env() -> dict:
+    """This process's environment with CLI_ENV, the checkout first on
+    PYTHONPATH."""
     env = dict(os.environ, **CLI_ENV)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                        if p])
+    return env
+
+
+def run_cli(module: str, *args: str, without=(), timeout: int = 600) -> dict:
+    """`python -m module args` in a subprocess from the checkout's root,
+    the modules `without` unimportable there -> {"stdout", "launches",
+    "peak_bytes", "seconds"}; raises on a non-zero exit."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", _CLI_RUNNER, ",".join(without), module,
          *args],
-        cwd=str(ROOT), env=env, capture_output=True, text=True,
+        cwd=str(ROOT), env=_child_env(), capture_output=True, text=True,
         timeout=timeout)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -1954,6 +1978,307 @@ def phase_yolo(dev, bank) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 11
+
+# Phase 11: the deployment path, from a camera file to a served frame, at
+# SID's Sony geometry (FRAME).  Cuts: INGEST_PAIRS pairs of the dataset's
+# 2,697 short/long pairs, made from seed 0 in place of the camera's files.
+FLAGSHIP = "Bayer_01_Demosaic_03_sRGB_01_13_11"
+INGEST_PAIRS = 2
+INGEST_PATCH = 512
+INGEST_RATIO = 100.0          # SID's 0.1 s short to 10 s long exposure
+SID_BLACK, SID_WHITE = 512, 16383   # the Sony raws' 14-bit black and white
+RAWPROC_TOL = 1e-6            # tests/test_native.py: native vs numpy forms
+ARTIFACT_TOL = 1e-4           # ROADMAP.md's serving-artifact gate, vs serving fn
+ARTIFACT_REPS = 3             # timed frames after the first, per artifact
+# python -c: load an artifact with deploy alone, serve a frame, save it;
+# print the launches of that first frame (counted from 0 at the start of
+# the process, as run_cli counts), ms a frame over `reps` more (CUDA
+# events), and the modules of the JAX package, the op zoo or the pipeline it
+# imported (there must be none)
+_ARTIFACT_RUNNER = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from reconfigisp_tpu_torch import deploy
+from reconfigisp_tpu_torch.ops.kernels import bilateral, fastnlm, median
+def counts():
+    return {"bilateral": bilateral.launches, "median": median.launches,
+            "fastnlm": fastnlm.launches}
+path, frame, out, reps = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+served = deploy.load_pipeline(path)
+x = torch.from_numpy(np.load(frame)).to(served.device)
+y = served(x)
+torch.cuda.synchronize()
+first = counts()
+first_s = time.perf_counter() - t0
+np.save(out, y.cpu().numpy())
+start = torch.cuda.Event(enable_timing=True)
+end = torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(reps):
+    served(x)
+end.record()
+torch.cuda.synchronize()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "reconfigisp_tpu")
+             or m in ("reconfigisp_tpu_torch.pipeline", "reconfigisp_tpu_torch.registry"))
+print("ARTIFACT " + json.dumps({
+    "first_launches": first, "launches": counts(),
+    "ms": start.elapsed_time(end) / reps, "seconds_to_first_frame": first_s,
+    "imported": bad, "peak_bytes": torch.cuda.max_memory_allocated()}),
+      flush=True)
+"""
+
+
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_rawproc() -> None:
+    """11a: build native/rawproc.cpp with g++ here, and hold its four
+    functions against their numpy forms on a SID-size uint16 frame from
+    seed 0, within RAWPROC_TOL (host times beside)."""
+    lib, build_ms = _host_ms(rawproc.build)
+    line("phase 11a rawproc build", library=lib.name,
+         seconds=f"{build_ms / 1e3:.2f}", flags=" ".join(rawproc.CXX_FLAGS))
+    rng = np.random.default_rng(0)
+    h, w = FRAME
+    raw = rng.integers(0, SID_WHITE + 1, (2, h, w), dtype=np.uint16)
+    offsets = np.stack([rng.integers(0, h - INGEST_PATCH, 8),
+                        rng.integers(0, w - INGEST_PATCH, 8)], 1)
+    mosaic = rawproc.normalize_u16(raw[0], SID_BLACK, SID_WHITE)
+    ys, xs = (tile_positions(h, PATCH, STRIDE), tile_positions(w, PATCH, STRIDE))
+    positions = np.asarray([(y, x) for y in ys for x in xs], np.int32)
+    patches = np.repeat(np.stack([mosaic[y:y + PATCH, x:x + PATCH]
+                                  for y, x in positions])[..., None], 3, -1)
+    mask = feather_mask((PATCH, PATCH), ((PATCH - STRIDE) // 2,) * 2)
+    cases = {
+        "normalize_u16": ((raw[0], SID_BLACK, SID_WHITE, 2.5), {}),
+        "crop_norm_batch": ((np.repeat(raw, 4, 0), offsets, INGEST_PATCH,
+                             SID_BLACK, SID_WHITE, 2.5), {}),
+        "pack_rggb": ((mosaic,), {}),
+        "feather_accumulate": ((patches, positions, mask, h, w), {}),
+    }
+    for name, (args, kw) in cases.items():
+        got, ms = _host_ms(lambda: getattr(rawproc, name)(*args, **kw))
+        want, plain_ms = _host_ms(
+            lambda: getattr(rawproc, f"{name}_plain")(*args, **kw))
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        line("phase 11a rawproc vs numpy", fn=name,
+             shape=tuple(np.shape(args[0])), max_abs_err=f"{err:.3e}",
+             tol=RAWPROC_TOL, native_ms=f"{ms:.2f}",
+             numpy_ms=f"{plain_ms:.2f}")
+        if not err <= RAWPROC_TOL:
+            raise AssertionError(f"rawproc {name}: {err} > {RAWPROC_TOL}")
+
+
+def write_dng_pairs(root: Path):
+    """INGEST_PAIRS SID-size 14-bit DNG pairs from seed 0: a long exposure
+    of a BGR scene smooth over 16-pixel cells, mosaicked RGGB between the
+    black and white levels, and a short one at 1 / INGEST_RATIO of it with
+    read noise.  Each is read back and must be bit-exact.  -> (short paths,
+    long paths, bytes written)."""
+    h, w = FRAME
+    rng = np.random.default_rng(0)
+    shorts, longs, nbytes = [], [], 0
+    for i in range(INGEST_PAIRS):
+        cells = rng.uniform(0.05, 0.95, (-(-h // 16), -(-w // 16), 3))
+        bgr = np.repeat(np.repeat(cells, 16, 0), 16, 1)[:h, :w]
+        scene = SyntheticRawDataset.mosaic_rggb(bgr.astype(np.float32))[..., 0]
+        long_ = SID_BLACK + scene * (SID_WHITE - SID_BLACK)
+        short = SID_BLACK + (long_ - SID_BLACK) / INGEST_RATIO + rng.normal(
+            0.0, 8.0, (h, w))
+        for kind, value, paths in (("short", short, shorts),
+                                   ("long", long_, longs)):
+            mosaic = np.clip(np.round(value), 0, SID_WHITE).astype(np.uint16)
+            path = root / f"{i:05d}_00_{kind}.dng"
+            dng.write_dng(str(path), mosaic, black=SID_BLACK, white=SID_WHITE,
+                          bits=14, as_shot_neutral=[0.5, 1.0, 0.6])
+            back, meta = dng.read_dng(str(path))
+            if not (np.array_equal(back, mosaic) and meta["bits"] == 14
+                    and meta["cfa"] == "RGGB"
+                    and meta["white_level"] == SID_WHITE):
+                raise AssertionError(f"{path.name}: read back differs")
+            paths.append(str(path))
+            nbytes += path.stat().st_size
+    return shorts, longs, nbytes
+
+
+def phase_ingest(tmp: Path) -> np.ndarray:
+    """11b: DNG pairs written and read back bit-exact, then ingested with
+    process_raw_pairs into packed records of INGEST_PATCH patches (the
+    training layout), read through the port's PairRecordDataset.  The frames
+    to serve are the short exposures as process_raw_pairs normalizes them,
+    and every record of the first pair must equal its window of the first.
+    -> the frames (N, H, W, 1) float32."""
+    (tmp / "dng").mkdir()
+    (shorts, longs, nbytes), write_ms = _host_ms(
+        lambda: write_dng_pairs(tmp / "dng"))
+    line("phase 11b dng", pairs=INGEST_PAIRS, frame=FRAME, bits=14,
+         mib=f"{nbytes / 2**20:.1f}", write_and_read_s=f"{write_ms / 1e3:.2f}")
+    root = tmp / "ingest"
+    count, ms = _host_ms(lambda: process_raw_pairs(
+        shorts, longs, str(root), ratio=INGEST_RATIO, patch=INGEST_PATCH,
+        packed=True))
+    data = create_dataset({"mode": "SID", "dataroot": str(root),
+                           "is_train": False})
+    line("phase 11b process_raw_pairs", patch=INGEST_PATCH, count=count,
+         seconds=f"{ms / 1e3:.2f}",
+         mb_per_s=f"{nbytes / 1e6 / (ms / 1e3):.1f}",
+         out_mib=f"{sum(f.stat().st_size for f in root.iterdir()) / 2**20:.1f}")
+    per_pair = (FRAME[0] // INGEST_PATCH) * (FRAME[1] // INGEST_PATCH)
+    if count != INGEST_PAIRS * per_pair or len(data) != count:
+        raise AssertionError(f"{count} records, want {INGEST_PAIRS * per_pair}")
+    frames = np.stack([rawproc.normalize_u16(
+        dng.read_dng(path)[0], SID_BLACK, SID_WHITE, INGEST_RATIO)[..., None]
+        for path in shorts])
+    cols = FRAME[1] // INGEST_PATCH
+    for k in range(per_pair):
+        y0, x0 = INGEST_PATCH * (k // cols), INGEST_PATCH * (k % cols)
+        sample = data[k]
+        if not (np.array_equal(sample["noisy"], frames[
+                0, y0:y0 + INGEST_PATCH, x0:x0 + INGEST_PATCH])
+                and sample["gt"].shape == (INGEST_PATCH, INGEST_PATCH, 3)):
+            raise AssertionError(f"record {k} is not the frame at {y0}, {x0}")
+    return frames
+
+
+def run_artifact(path: Path, frame: Path, out: Path) -> dict:
+    """An artifact loaded and served in a fresh process (_ARTIFACT_RUNNER),
+    TF32 off."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _ARTIFACT_RUNNER, str(path), str(frame),
+         str(out), str(ARTIFACT_REPS)],
+        cwd=str(ROOT), env=_child_env(), capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"artifact process exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    run = json.loads(re.findall(r"^ARTIFACT (.*)$", proc.stdout, re.M)[-1])
+    return {**run, "seconds": time.perf_counter() - t0}
+
+
+def phase_artifacts(dev, bank, tmp: Path, frames: np.ndarray) -> dict:
+    """11c: slice 2 exported with the tiled engine (PATCH, STRIDE, CHUNK) at
+    1 x FRAME, f32 and bf16 storage, saved, then loaded and served on the
+    first ingested frame in a fresh process; held within ARTIFACT_TOL of
+    make_serving_fn on the same weights and frame in this process, with the
+    same launches.  -> the artifacts' launches."""
+    pipe = load_pipeline(dev, SLICE2, bank=bank)
+    serve = make_serving_fn(pipe, patch=PATCH, stride=STRIDE, chunk=CHUNK,
+                            device=dev)
+    np.save(tmp / "frame.npy", frames[:1])
+    x = torch.from_numpy(frames[:1]).to(dev)
+    n_tiles = (len(tile_positions(FRAME[0], PATCH, STRIDE))
+               * len(tile_positions(FRAME[1], PATCH, STRIDE)))
+    calls = math.ceil(n_tiles / CHUNK)
+    expected = {name: calls if name in PATHS[SLICE2] else 0
+                for name in KERNELS}
+    total = {name: 0 for name in KERNELS}
+    for storage in ("f32", "bf16"):
+        t0 = time.perf_counter()
+        blob = export_pipeline(pipe, (1, *FRAME, 1), patch=PATCH,
+                               stride=STRIDE, chunk=CHUNK, storage=storage)
+        export_s = time.perf_counter() - t0
+        path = tmp / f"slice2_{storage}.rispt"
+        save_artifact(str(path), blob)
+        with precision.cnn_storage(storage):
+            _zero_counts()
+            want = serve(x)
+            torch.cuda.synchronize()
+            direct = _counts()
+            fn_ms = event_ms(lambda: serve(x), reps=ARTIFACT_REPS)
+        want = want[0].cpu().numpy()
+        run = run_artifact(path, tmp / "frame.npy", tmp / f"out_{storage}.npy")
+        got = np.load(tmp / f"out_{storage}.npy")[0]
+        diff = float(np.abs(got - want).max())
+        line("phase 11c artifact", arch=SLICE2, storage=storage,
+             shape=(1, *FRAME, 1), patch=PATCH, stride=STRIDE, chunk=CHUNK,
+             mb=f"{len(blob) / 1e6:.2f}", export_s=f"{export_s:.2f}",
+             max_abs_diff=f"{diff:.3e}", tol=ARTIFACT_TOL,
+             launches=json.dumps(run["first_launches"]).replace(" ", ""),
+             serving_fn_launches=json.dumps(direct).replace(" ", ""),
+             ms_per_frame=f"{run['ms']:.3f}",
+             serving_fn_ms_per_frame=f"{fn_ms:.3f}",
+             peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
+             process_s=f"{run['seconds']:.2f}",
+             first_frame_s=f"{run['seconds_to_first_frame']:.2f}",
+             imported=run["imported"], card=repr(nvidia_smi(dev.index or 0)))
+        served = 1 + ARTIFACT_REPS
+        if not (diff <= ARTIFACT_TOL and run["first_launches"] == direct
+                == expected and not run["imported"] and run["launches"] == {
+                    k: v * served for k, v in expected.items()}
+                and np.isfinite(got).all() and got.shape == (*FRAME, 3)):
+            raise AssertionError(f"slice 2 artifact {storage}: diff {diff}, "
+                                 f"launches {run} vs {direct}")
+        for name in KERNELS:
+            total[name] += run["first_launches"][name]
+    return total
+
+
+def phase_artifacts_in_process(dev, bank, frames: np.ndarray) -> dict:
+    """11d: the flagship exported whole-frame with a symbolic batch, served
+    at batch 1 and 2 on the ingested frames; and slice 1 (the bilateral)
+    exported whole-frame at 1 x FRAME and served in this process, its
+    launches counted from 0.  Each within ARTIFACT_TOL of make_serving_fn.
+    -> slice 1's artifact launches."""
+    pipe = load_pipeline(dev, FLAGSHIP, bank=bank)
+    t0 = time.perf_counter()
+    served = load_artifact(export_pipeline(pipe, ("b", *FRAME, 1)),
+                           device=dev)
+    export_s = time.perf_counter() - t0
+    serve = make_serving_fn(pipe, device=dev)
+    for n in (1, 2):
+        x = torch.from_numpy(frames[:n]).to(dev)
+        got, want = served(x), serve(x)
+        diff = float((got - want).abs().max())
+        ms = event_ms(lambda: served(x), reps=ARTIFACT_REPS)
+        line("phase 11d symbolic batch", arch=FLAGSHIP, batch=n,
+             frame=FRAME, max_abs_diff=f"{diff:.3e}", tol=ARTIFACT_TOL,
+             ms_per_frame=f"{ms / n:.3f}", export_and_load_s=f"{export_s:.2f}")
+        if not (diff <= ARTIFACT_TOL and tuple(got.shape) == (n, *FRAME, 3)):
+            raise AssertionError(f"symbolic batch {n}: {diff}")
+    del served, pipe
+    pipe = load_pipeline(dev, SLICE1, bank=bank)
+    served = load_artifact(export_pipeline(pipe, (1, *FRAME, 1)), device=dev)
+    x = torch.from_numpy(frames[:1]).to(dev)
+    _zero_counts()
+    got = served(x)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = make_serving_fn(pipe, device=dev)(x)
+    diff = float((got - want).abs().max())
+    expected = {name: 1 if name in PATHS[SLICE1] else 0 for name in KERNELS}
+    line("phase 11d artifact in process", arch=SLICE1, shape=(1, *FRAME, 1),
+         max_abs_diff=f"{diff:.3e}", tol=ARTIFACT_TOL,
+         launches=json.dumps(launches).replace(" ", ""))
+    if not (diff <= ARTIFACT_TOL and launches == expected):
+        raise AssertionError(f"slice 1 artifact: {diff}, {launches}")
+    return launches
+
+
+def phase_deployment(dev, bank) -> dict:
+    """Phase 11: 11a rawproc, 11b DNG ingestion, 11c the slice-2 artifacts
+    in fresh processes, 11d the symbolic batch and slice 1's artifact.
+    -> the artifacts' launches of each kernel."""
+    with tempfile.TemporaryDirectory() as root:
+        tmp = Path(root)
+        t0 = time.perf_counter()
+        phase_rawproc()
+        frames = phase_ingest(tmp)
+        launches = phase_artifacts(dev, bank, tmp, frames)
+        slice1 = phase_artifacts_in_process(dev, bank, frames)
+        total = {name: launches[name] + slice1[name] for name in KERNELS}
+        line("phase 11 launches", artifacts=json.dumps(total).replace(" ", ""),
+             seconds=f"{time.perf_counter() - t0:.2f}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1981,6 +2306,7 @@ def main() -> int:
     search_launches, search_ms = phase_search(dev, bank)
     entry = phase_entry_points(dev, bank, train_ms[SLICE2], search_ms)
     yolo_launches = phase_yolo(dev, bank)
+    artifact_launches = phase_deployment(dev, bank)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -1991,6 +2317,7 @@ def main() -> int:
         "pretrain_launches": entry["pretrain"][name],
         "entry_point_launches": entry["entry"][name],
         "yolo_launches": yolo_launches[name],
+        "artifact_launches": artifact_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,9 +16,23 @@ caller passes `device="cpu"`, and raise when CUDA is asked for but absent;
 `search.IspTrainer` trains a Pipeline where it lies.
 """
 
+import importlib
+
 from reconfigisp_tpu_torch.version import __version__
-from reconfigisp_tpu_torch.registry import OpSpec, get_op, pool
-from reconfigisp_tpu_torch.pipeline import Pipeline, parse_architecture
+
+# The names below are imported at first use (PEP 562), so that importing a
+# submodule, such as deploy to load a serving artifact, does not import the
+# op zoo.
+_LAZY = {"OpSpec": "registry", "get_op": "registry", "pool": "registry",
+         "Pipeline": "pipeline", "parse_architecture": "pipeline"}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+    return getattr(module, name)
+
 
 __all__ = [
     "__version__",

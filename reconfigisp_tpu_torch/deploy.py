@@ -1,39 +1,242 @@
-"""Serving entry point for fixed ISP pipelines.
+"""Serving for fixed ISP pipelines: make_serving_fn and the serving artifact.
 
-Counterpart of reconfigisp_tpu/deploy.py:41-61 (make_serving_fn); the
-exported serving artifact is not ported yet.
+Counterpart of reconfigisp_tpu/deploy.py.  A trained pipeline exports to a
+self-contained artifact (`export_pipeline`), a `torch.export` program in
+place of the JAX package's StableHLO:
+
+  * weights and op parameters are baked into the program, so loading needs
+    neither the op zoo nor the original weights: `load_pipeline` imports
+    this module and the kernels' custom ops (ops/kernels/, which the
+    program calls as `reconfigisp::bilateral`, `::median` and `::fastnlm`),
+    and nothing of registry.py or pipeline.py;
+  * the program is make_serving_fn's: whole-frame, or the feathered tiled
+    engine (parallel/tiling.py) for 12 MP-class frames;
+  * the CNN storage policy (precision.py) is applied at export trace time
+    and recorded in the header;
+  * the program runs on the card (the kernels) or on the CPU (their plain
+    forms); `load_pipeline` moves it to the device it is asked for, cuda
+    unless the caller names the CPU.
+
+Artifact layout: the magic MAGIC (the JAX package's is RISPTPU1, so each
+loader refuses the other's artifact), uint32 little-endian header length, a
+UTF-8 JSON header with the JAX package's keys (version, architecture,
+use_proxy, input_shape, dtype, patch, stride, chunk, cnn_storage, mesh,
+platforms), then the torch.export.save bytes.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import io
+import json
+import struct
+from typing import Optional, Sequence, Union
 
 import torch
+from torch import nn
+from torch.export.passes import move_to_device_pass
 
+from reconfigisp_tpu_torch import precision
+from reconfigisp_tpu_torch.device import resolve_device
+# the custom ops a serving program calls, registered on import
+from reconfigisp_tpu_torch.ops.kernels import bilateral, fastnlm, median  # noqa: F401
 from reconfigisp_tpu_torch.parallel.tiling import tiled_apply
-from reconfigisp_tpu_torch.pipeline import Pipeline, resolve_device
+
+MAGIC = b"RISPTOR1"
+_VERSION = 1
+_PLATFORMS = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
 
 
-def make_serving_fn(pipe: Pipeline, *, patch: Optional[int] = None,
+class ServingProgram(nn.Module):
+    """mosaic -> sRGB: the pipeline on the whole frame, or with `patch` set
+    through the feathered tiled engine; `stride` defaults to patch (no
+    overlap) and `chunk` is the number of tile positions per pipeline
+    call."""
+
+    def __init__(self, pipe, patch: Optional[int] = None,
+                 stride: Optional[int] = None, chunk: int = 32):
+        super().__init__()
+        self.pipe = pipe
+        self.patch = int(patch) if patch else None
+        self.stride = int(stride or patch or 0)
+        self.chunk = chunk
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.patch:
+            return tiled_apply(self.pipe, x, patch=self.patch,
+                               stride=self.stride, chunk=self.chunk)
+        return self.pipe(x)
+
+
+def make_serving_fn(pipe, *, patch: Optional[int] = None,
                     stride: Optional[int] = None, chunk: int = 32,
                     device=None):
-    """mosaic -> sRGB closure over the pipeline, run in inference mode.
-
-    With `patch` set, frames go through the feathered tiled engine
-    (parallel/tiling.py); `stride` defaults to patch (no overlap) and `chunk`
-    is the number of tile positions per pipeline call.  `device` defaults to
-    cuda and must be the pipeline's; inputs are moved to it."""
+    """mosaic -> sRGB closure over the pipeline's ServingProgram, run in
+    inference mode.  `device` defaults to cuda and must be the pipeline's;
+    inputs are moved to it."""
     dev = resolve_device(device)
     if pipe.device != dev:
         raise ValueError(f"pipeline is on {pipe.device}, serving on {dev}")
-    st = int(stride or patch or 0)
+    program = ServingProgram(pipe, patch, stride, chunk)
 
     @torch.inference_mode()
     def serve(x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        if patch:
-            return tiled_apply(pipe, x, patch=int(patch), stride=st,
-                               chunk=chunk)
-        return pipe(x)
+        return program(torch.as_tensor(x, dtype=torch.float32, device=dev))
 
     return serve
+
+
+def _check_mesh(data: int, space: int, device: torch.device) -> None:
+    """A (data x space) mesh baked into the program: the JAX package's
+    checks, then NotImplementedError, since the port has no mesh yet."""
+    n = data * space
+    have = torch.cuda.device_count() if device.type == "cuda" else 1
+    if have < n:
+        raise ValueError(f"mesh data={data} x space={space} needs {n} "
+                         f"devices, have {have}")
+    raise NotImplementedError(
+        f"mesh data={data} x space={space}: sharded serving is not ported "
+        "yet (ROADMAP.md, the item on parallel/mesh.py and parallel/dp.py); "
+        "export with data_parallel = space_parallel = 1")
+
+
+def _platform_names(platforms: Optional[Sequence[str]]) -> list:
+    if platforms is None:
+        return ["cuda", "cpu"]
+    names = []
+    for name in platforms:
+        if name.lower() not in _PLATFORMS:
+            raise ValueError(f"platform {name!r}: the port serves on "
+                             f"{sorted(_PLATFORMS)}")
+        if _PLATFORMS[name.lower()] not in names:
+            names.append(_PLATFORMS[name.lower()])
+    return names
+
+
+def export_pipeline(pipe, input_shape: Sequence, *,
+                    patch: Optional[int] = None,
+                    stride: Optional[int] = None,
+                    chunk: int = 32,
+                    storage: Optional[str] = None,
+                    data_parallel: int = 1,
+                    space_parallel: int = 1,
+                    platforms: Optional[Sequence[str]] = None) -> bytes:
+    """Export `pipe` (a Pipeline, with its state) as a serving artifact.
+
+    input_shape: (N, H, W, C) of the serving request; one artifact per
+    served shape.  For the whole-frame path N may be -1 or "b": the batch is
+    exported symbolic (torch.export.Dim) and one artifact serves any batch
+    size; the tiled engine needs a concrete batch.  The trace runs on the
+    pipeline's device.  storage: CNN storage applied at trace time ('f32' or
+    'bf16'; None = the active policy).  data_parallel x space_parallel > 1
+    (a mesh baked into the program) is not ported: NotImplementedError after
+    the JAX package's checks.  platforms: where the artifact may be loaded,
+    'cuda' (or 'gpu') and 'cpu'; None = both, since the program runs on
+    either device.  Recorded in the header; load_pipeline holds to it."""
+    mesh_dims = (int(data_parallel), int(space_parallel))
+    if mesh_dims != (1, 1):
+        if patch:
+            raise ValueError("mesh-sharded export is whole-frame only; the "
+                             "tiled engine is the single-chip memory story")
+        _check_mesh(*mesh_dims, pipe.device)
+    names = _platform_names(platforms)
+    dims = list(input_shape)
+    poly_batch = dims[0] in (-1, "b", None)
+    if poly_batch and patch:
+        raise ValueError("symbolic batch is whole-frame only; the tiled "
+                         "engine needs a concrete batch size")
+    example = torch.zeros((2 if poly_batch else int(dims[0]),
+                           *(int(d) for d in dims[1:])), device=pipe.device)
+    dynamic = ({0: torch.export.Dim("b")},) if poly_batch else None
+    program = ServingProgram(pipe, patch, stride, chunk)
+    dtype = (precision._DTYPES[storage] if storage
+             else precision.cnn_storage_dtype())
+    with precision.cnn_storage(dtype), torch.no_grad():
+        exported = torch.export.export(program, (example,),
+                                       dynamic_shapes=dynamic, strict=False)
+    # the example input would be saved with the program: a zero frame
+    exported.example_inputs = None
+    buf = io.BytesIO()
+    torch.export.save(exported, buf)
+    header = {
+        "version": _VERSION,
+        "architecture": pipe.architecture,
+        "use_proxy": pipe.use_proxy,
+        "input_shape": ["b" if poly_batch else int(dims[0])]
+                       + [int(d) for d in dims[1:]],
+        "dtype": "float32",
+        "patch": int(patch) if patch else None,
+        "stride": int(stride or patch) if patch else None,
+        "chunk": int(chunk) if patch else None,
+        "cnn_storage": str(dtype).removeprefix("torch."),
+        "mesh": None,
+        "platforms": names,
+    }
+    hjson = json.dumps(header).encode("utf-8")
+    return MAGIC + struct.pack("<I", len(hjson)) + hjson + buf.getvalue()
+
+
+def save_artifact(path: str, blob: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(blob)
+
+
+class ServingPipeline:
+    """A loaded artifact: `meta` dict + `__call__(image) -> sRGB` on
+    `device`.  The program holds the weights; no op zoo is needed."""
+
+    def __init__(self, meta: dict, exported, device: torch.device):
+        self.meta = meta
+        self.device = device
+        self._exported = exported
+        self._module = exported.module()
+
+    @property
+    def architecture(self) -> str:
+        return self.meta["architecture"]
+
+    @property
+    def input_shape(self):
+        return tuple(self.meta["input_shape"])
+
+    def __call__(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        want = self.input_shape
+        if x.ndim != len(want) or any(
+                d != "b" and s != d for s, d in zip(x.shape, want)):
+            raise ValueError(f"artifact serves {list(want)}, got "
+                             f"{list(x.shape)}")
+        with torch.inference_mode():
+            return self._module(x)
+
+
+def split_artifact(blob: bytes):
+    """-> (header dict, torch.export.save bytes); raises ValueError on
+    another magic (the JAX package's artifact among them) or version."""
+    if blob[:len(MAGIC)] != MAGIC:
+        raise ValueError(f"not a reconfigisp_tpu_torch serving artifact "
+                         f"(magic {blob[:8]!r})")
+    off = len(MAGIC)
+    (hlen,) = struct.unpack("<I", blob[off:off + 4])
+    off += 4
+    meta = json.loads(blob[off:off + hlen].decode("utf-8"))
+    if meta.get("version") != _VERSION:
+        raise ValueError(f"unsupported artifact version {meta.get('version')}")
+    return meta, blob[off + hlen:]
+
+
+def load_pipeline(src: Union[str, bytes], device=None) -> ServingPipeline:
+    """Load an artifact from a path or raw bytes onto `device` (cuda unless
+    the caller names the CPU); a program exported on the other device is
+    moved (torch.export.passes.move_to_device_pass)."""
+    blob = src
+    if isinstance(src, str):
+        with open(src, "rb") as f:
+            blob = f.read()
+    meta, program = split_artifact(blob)
+    dev = resolve_device(device)
+    if dev.type not in meta["platforms"]:
+        raise ValueError(f"artifact exported for {meta['platforms']}, "
+                         f"not {dev.type}")
+    exported = move_to_device_pass(torch.export.load(io.BytesIO(program)),
+                                   dev)
+    return ServingPipeline(meta, exported, dev)

@@ -7,8 +7,9 @@ flags, so an edited source builds anew and an unchanged one is reused.  A
 failed build raises: there is no fallback.
 
 Every source exports `int <name>_forward(x, params, out, n, h, w, c,
-stream)` over NHWC float32; `on_card` and `launch` are the routing and the
-call that the kernel wrappers (ops/kernels/*.py) share.
+stream)` over NHWC float32; `launch` is the call of the CUDA implementation
+of each kernel's custom op (ops/kernels/_vjp.py), and `check` the operand
+checks it shares with the op's fake implementation.
 """
 
 from __future__ import annotations
@@ -94,27 +95,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def on_card(op: str, x: torch.Tensor, params: torch.Tensor) -> bool:
-    """Where `op` runs: False for a CPU tensor (the plain form), True for a
-    CUDA tensor (the kernel, inside _vjp.WindowedKernel, whose backward is
-    the plain form's gradient, so inputs that require grad run it too).
-    Raises for any other device."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{op} runs on cuda or cpu, not {x.device}")
-    return True
-
-
-def launch(name: str, x: torch.Tensor, params: torch.Tensor,
-           n_params: int) -> torch.Tensor:
-    """Run csrc/<name>.cu on x's device and current stream and return its
-    output.  The kernels read contiguous NHWC, so other strides are copied
-    first.  Raises on operands a kernel does not take: (N, H, W, 1|3)
+def check(name: str, x: torch.Tensor, params: torch.Tensor,
+          n_params: int) -> None:
+    """Raise on operands csrc/<name>.cu does not take: (N, H, W, 1|3)
     float32 with H, W > MAX_R (one reflection) and N <= 65535 (the grid's
-    z), and params (N, n_params) float32 on the same device; and on a CUDA
-    error (a refused launch never runs, so it must be caught here)."""
-    x, params = x.contiguous(), params.contiguous()
+    z), and params (N, n_params) float32 on the same device.  Shapes may be
+    symbolic (the op's fake implementation under torch.export)."""
     if x.dtype != torch.float32 or params.dtype != torch.float32:
         raise TypeError(f"{name} kernel takes float32, got {x.dtype} "
                         f"and {params.dtype}")
@@ -125,11 +111,23 @@ def launch(name: str, x: torch.Tensor, params: torch.Tensor,
     if h <= MAX_R or w <= MAX_R or not 1 <= n <= 65535:
         raise ValueError(f"{name} kernel needs H, W > {MAX_R} and "
                          f"1 <= N <= 65535, got {tuple(x.shape)}")
-    if tuple(params.shape) != (n, n_params):
+    if params.ndim != 2 or params.shape[0] != n \
+            or params.shape[1] != n_params:
         raise ValueError(f"params must be ({n}, {n_params}), got "
                          f"{tuple(params.shape)}")
     if params.device != x.device:
         raise ValueError("x and params must be on the same device")
+
+
+def launch(name: str, x: torch.Tensor, params: torch.Tensor,
+           n_params: int) -> torch.Tensor:
+    """Run csrc/<name>.cu on x's device and current stream and return its
+    output, contiguous NHWC.  The kernels read contiguous NHWC, so other
+    strides are copied first.  Raises on operands the kernel does not take
+    (`check`) and on a CUDA error (a refused launch never runs, so it must
+    be caught here)."""
+    check(name, x, params, n_params)
+    x, params = x.contiguous(), params.contiguous()
     fn = getattr(load(name), f"{name}_forward")
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

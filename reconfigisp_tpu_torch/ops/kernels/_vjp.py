@@ -1,27 +1,36 @@
-"""Autograd for the hand-written kernels: the kernel forward, the plain backward.
+"""The hand-written kernels as torch.library custom ops, and their autograd.
 
 Counterpart of reconfigisp_tpu/ops/denoise.py:_make_hybrid and _strip_vjp.
-The JAX package has no backward kernel: its custom_vjp differentiates the jnp
-form.  So here `WindowedKernel` launches the Hopper kernel in the forward
-(_build.launch) and saves x and params; its backward recomputes the plain
-PyTorch form from them under autograd and returns that form's gradient:
-directly for a frame of at most DIRECT_ROWS rows, and above that strip by
-strip (`strip_vjp`), which bounds the plain form's tap residuals at
+`windowed_op` defines two ops per kernel: `reconfigisp::<name>(x, params)`
+and `reconfigisp::<name>_backward(x, params, g, need_x, need_p)`.  The
+forward's CUDA implementation launches the Hopper kernel (_build.launch) and
+counts the launch; its CPU implementation is the plain PyTorch form; its fake
+implementation, which torch.export and torch.compile trace through, makes
+the kernel's operand checks and returns an empty contiguous output.  So an
+exported program holds each kernel as one opaque call, and runs the kernel
+on the card and the plain form on the CPU.
+
+The JAX package has no backward kernel: its custom_vjp differentiates the
+jnp form.  So here the forward op's autograd keeps x and params, and its
+backward is the backward op, whose implementation (on either device)
+recomputes the plain form from them under autograd and returns that form's
+gradient: directly for a frame of at most DIRECT_ROWS rows, and above that
+strip by strip (`strip_vjp`), which bounds the plain form's tap residuals at
 STRIP + 2 halo rows.  On the same saved inputs the direct gradient is the
 plain form's own, bit for bit: the plain forms pad by slices and flips
-(ops/nn.reflect), so their backward adds in a fixed order.
-
-The backward is once differentiable, as the DARTS step needs: it
-differentiates each kernel once.  `vjp` and `strip_vjp` are plain functions
-of the plain form, so the CPU tests reach the code the backward runs.
+(ops/nn.reflect), so their backward adds in a fixed order.  The backward op
+has no autograd of its own: the kernels are differentiable once, as the DARTS
+step needs (it differentiates each kernel once).  `vjp` and `strip_vjp` are
+plain functions of the plain form, so the CPU tests reach the code the
+backward runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from reconfigisp_tpu_torch.ops.kernels import _build
 
@@ -80,28 +89,91 @@ def strip_vjp(plain: Plain, halo: int, x, params, g, needs=(True, True),
 
 
 def vjp(plain: Plain, halo: int, x, params, g, needs=(True, True)):
-    """What WindowedKernel's backward returns: the plain form's gradient,
+    """What the backward op returns: the plain form's gradient,
     directly up to DIRECT_ROWS rows and strip by strip above."""
     if x.shape[1] <= DIRECT_ROWS:
         return _grads(plain, x, params, g, needs)
     return strip_vjp(plain, halo, x, params, g, needs, STRIP)
 
 
-class WindowedKernel(torch.autograd.Function):
-    """apply(x, params, name, plain, n_params, halo): csrc/<name>.cu forward,
-    `plain`'s gradient backward."""
+@contextlib.contextmanager
+def _autograd_on():
+    """Autograd inside a custom op's implementation, which the dispatcher
+    calls with the autograd keys excluded: they are taken out of the
+    thread's excluded set for the block, and grad mode is on."""
+    exclude = torch._C._dispatch_tls_local_exclude_set().remove(
+        torch._C.DispatchKey.AutogradFunctionality)
+    with torch._C._ForceDispatchKeyGuard(
+            torch._C._dispatch_tls_local_include_set(), exclude), \
+            torch.enable_grad():
+        yield
 
-    @staticmethod
-    def forward(ctx, x, params, name: str, plain: Plain, n_params: int,
-                halo: int):
-        ctx.save_for_backward(x, params)
-        ctx.plain, ctx.halo = plain, halo
-        return _build.launch(name, x, params, n_params)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x, params = ctx.saved_tensors
-        gx, gp = vjp(ctx.plain, ctx.halo, x, params, g,
-                     tuple(ctx.needs_input_grad[:2]))
-        return gx, gp, None, None, None, None
+def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
+                on_launch: Callable[[], None]):
+    """Define reconfigisp::<name> and its backward op (module docstring).
+    `on_launch` is called once per kernel launch, after it, and nowhere
+    else: not on the CPU, not under fake tensors.  -> the forward op."""
+
+    @torch.library.custom_op(f"reconfigisp::{name}", mutates_args=())
+    def forward(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cuda":
+            out = _build.launch(name, x, params, n_params)
+            on_launch()
+            return out
+        return plain(x, params).contiguous()
+
+    @forward.register_fake
+    def _(x, params):
+        _build.check(name, x, params, n_params)
+        return x.new_empty(x.shape)
+
+    @torch.library.custom_op(f"reconfigisp::{name}_backward",
+                             mutates_args=())
+    def backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor,
+                 need_x: bool, need_p: bool) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+        with _autograd_on():
+            gx, gp = vjp(plain, halo, x, params, g, (need_x, need_p))
+        # an input that needs no gradient, or that the output does not
+        # depend on (the median's params), gets zeros here and None below
+        gx = torch.zeros_like(x) if gx is None else gx
+        gp = torch.zeros_like(params) if gp is None else gp
+        return gx.contiguous(), gp.contiguous()
+
+    @backward.register_fake
+    def _(x, params, g, need_x, need_p):
+        return x.new_empty(x.shape), params.new_empty(params.shape)
+
+    def setup_context(ctx, inputs, output):
+        # The inputs are kept as attributes, not saved tensors: a checkpoint
+        # around the op (the supernet's per-op remat) then has nothing to
+        # recompute, where its recompute would launch the kernel again to
+        # rebuild inputs that it holds anyway.  Their versions stand in for
+        # saved tensors' check against in-place changes.
+        ctx.inputs = inputs
+        ctx.versions = [t._version for t in inputs]
+
+    def differentiate(ctx, g):
+        x, params = ctx.inputs
+        if [t._version for t in ctx.inputs] != ctx.versions:
+            raise RuntimeError(f"an input of reconfigisp::{name} was "
+                               "modified in place before its backward")
+        need_x, need_p = ctx.needs_input_grad
+        gx, gp = backward(x, params, g, need_x, need_p)
+        return (gx if need_x else None), (gp if need_p else None)
+
+    forward.register_autograd(differentiate, setup_context=setup_context)
+    return forward
+
+
+def plain_here(op: str, x: torch.Tensor, params: torch.Tensor) -> bool:
+    """Whether a wrapper computes the plain form itself rather than call its
+    op: for a CPU tensor that autograd differentiates outside a traced
+    program, so that the gradient is the plain form's own autograd graph.
+    Raises for a device other than cuda and cpu."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op} runs on cuda or cpu, not {x.device}")
+    return (x.device.type == "cpu" and torch.is_grad_enabled()
+            and (x.requires_grad or params.requires_grad)
+            and not torch.compiler.is_compiling())

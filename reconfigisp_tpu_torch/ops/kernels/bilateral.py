@@ -1,15 +1,16 @@
 """Bilateral filter: the Hopper kernel's wrapper and its plain PyTorch form.
 
 The kernel (csrc/bilateral.cu) replaces the TPU kernel
-reconfigisp_tpu/ops/pallas_kernels.py:bilateral_pallas.  `bilateral` is the
-one place that chooses: it launches the kernel for a CUDA tensor and counts
-the launch in `launches`; for a tensor on the CPU it computes
-`bilateral_plain`, the same function in PyTorch (the form of
-reconfigisp_tpu/ops/denoise.py:_bilateral_jnp), which is also the kernel's
-reference on the card.  On CUDA the kernel runs inside an autograd Function
-(_vjp.WindowedKernel) whose backward is bilateral_plain's gradient, so a
-CUDA input that requires grad launches the kernel too; HALO is the rows of
-input one output row reaches, for the strip backward.
+reconfigisp_tpu/ops/pallas_kernels.py:bilateral_pallas.  It is the custom
+op `reconfigisp::bilateral` (_vjp.windowed_op), which launches the kernel
+for a CUDA tensor and counts the launch in `launches`, and for a tensor on
+the CPU computes `bilateral_plain`, the same function in PyTorch (the form
+of reconfigisp_tpu/ops/denoise.py:_bilateral_jnp), which is also the
+kernel's reference on the card.  The op's backward is bilateral_plain's
+gradient, so a CUDA input that requires grad launches the kernel too; HALO
+is the rows of input one output row reaches, for the strip backward.
+`bilateral` calls the op, except for a CPU input that autograd
+differentiates: that runs bilateral_plain itself (_vjp.plain_here).
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 [window01, sigma_color01, sigma_space01]; radius = clip(floor(7 window01),
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
-from reconfigisp_tpu_torch.ops.kernels._vjp import WindowedKernel
+from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.ops.nn import clip, reflect
 
 MAX_R = _build.MAX_R
@@ -69,13 +70,17 @@ def bilateral_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     return clip(out / 255.0, 0.0, 1.0)
 
 
-def bilateral(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel for a CUDA tensor, the plain form for a CPU tensor.
-    The kernel reads contiguous NHWC, so other strides are copied first."""
+def _count() -> None:
     global launches
-    if not _build.on_card("bilateral", x, params):
-        return bilateral_plain(x, params)
-    out = WindowedKernel.apply(x, params, "bilateral", bilateral_plain, 3,
-                               HALO)
     launches += 1
-    return out
+
+
+op = _vjp.windowed_op("bilateral", bilateral_plain, 3, HALO, _count)
+
+
+def bilateral(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The op (the CUDA kernel for a CUDA tensor, the plain form for a CPU
+    tensor), or bilateral_plain itself where _vjp.plain_here says so."""
+    if _vjp.plain_here("bilateral", x, params):
+        return bilateral_plain(x, params)
+    return op(x, params)

@@ -1,20 +1,21 @@
 """Fast non-local means: the Hopper kernel's wrapper and its plain form.
 
 The kernel (csrc/fastnlm.cu) replaces the TPU kernel
-reconfigisp_tpu/ops/pallas_kernels.py:fastnlm_pallas.  `fastnlm` launches it
-for a CUDA tensor and counts the launch in `launches`; for a tensor on the
-CPU it computes `fastnlm_plain`, the form of
+reconfigisp_tpu/ops/pallas_kernels.py:fastnlm_pallas.  It is the custom op
+`reconfigisp::fastnlm` (_vjp.windowed_op), which launches the kernel for a
+CUDA tensor and counts the launch in `launches`, and for a tensor on the CPU
+computes `fastnlm_plain`, the form of
 reconfigisp_tpu/ops/denoise.py:_fastnlm_jnp over the whole frame, border
 rule included, which is also the kernel's reference on the card.  (The
 Pallas kernel boxes differences of the reflect-padded image, so near the
 frame edges it differs from both.)  The kernel sums each box horizontally
 first and takes exp2 of the box sum times one scale per image, where this
 form divides by 2b+1 twice and by h^2 and takes exp: the two agree within
-5e-5.  On CUDA the kernel runs inside an autograd Function
-(_vjp.WindowedKernel) whose backward is fastnlm_plain's gradient, as the JAX
-backward differentiates _fastnlm_jnp, so a CUDA input that requires grad
-launches the kernel too.  One output row reaches HALO rows of input: the
-search radius and the block radius, 7 each at most.
+5e-5.  The op's backward is fastnlm_plain's gradient, as the JAX backward
+differentiates _fastnlm_jnp, so a CUDA input that requires grad launches the
+kernel too; `fastnlm` calls the op, except for a CPU input that autograd
+differentiates, which runs fastnlm_plain itself.  One output row reaches
+HALO rows of input: the search radius and the block radius, 7 each at most.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 [block01, search01, decay01].  The block radius comes from params[0, 0] for
@@ -28,7 +29,7 @@ import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels._build import MAX_R
-from reconfigisp_tpu_torch.ops.kernels._vjp import WindowedKernel
+from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.ops.kernels.bilateral import size01_to_radius
 from reconfigisp_tpu_torch.ops.nn import clip, reflect
 
@@ -74,12 +75,17 @@ def fastnlm_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     return clip(out / 255.0, 0.0, 1.0)
 
 
-def fastnlm(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel for a CUDA tensor, the plain form for a CPU tensor.
-    The kernel reads contiguous NHWC, so other strides are copied first."""
+def _count() -> None:
     global launches
-    if not _build.on_card("fastnlm", x, params):
-        return fastnlm_plain(x, params)
-    out = WindowedKernel.apply(x, params, "fastnlm", fastnlm_plain, 3, HALO)
     launches += 1
-    return out
+
+
+op = _vjp.windowed_op("fastnlm", fastnlm_plain, 3, HALO, _count)
+
+
+def fastnlm(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The op (the CUDA kernel for a CUDA tensor, the plain form for a CPU
+    tensor), or fastnlm_plain itself where _vjp.plain_here says so."""
+    if _vjp.plain_here("fastnlm", x, params):
+        return fastnlm_plain(x, params)
+    return op(x, params)

@@ -1,16 +1,17 @@
 """Median filter: the Hopper kernel's wrapper and its plain PyTorch form.
 
 The kernel (csrc/median.cu) replaces the TPU kernel
-reconfigisp_tpu/ops/pallas_kernels.py:median_pallas.  `median` launches it
-for a CUDA tensor and counts the launch in `launches`; for a tensor on the
-CPU it computes `median_plain`, the form of
+reconfigisp_tpu/ops/pallas_kernels.py:median_pallas.  It is the custom op
+`reconfigisp::median` (_vjp.windowed_op), which launches the kernel for a
+CUDA tensor and counts the launch in `launches`, and for a tensor on the CPU
+computes `median_plain`, the form of
 reconfigisp_tpu/ops/denoise.py:_median_jnp, which is also the kernel's
-reference on the card.  Both select the exact middle tap, so they agree bit
+reference on the card; `median` calls the op, except for a CPU input that
+autograd differentiates, which runs median_plain itself.  Both select the exact middle tap, so they agree bit
 for bit: the kernel by pruned selection networks in registers, shared by
 each 2x2 block of pixels, at radii up to 4, and by a bisection on the
 float's order-preserving key above (tests/test_torch_windowed.py emulates
-both on the CPU).  On CUDA the kernel runs inside an autograd Function
-(_vjp.WindowedKernel) whose backward is median_plain's gradient, so a CUDA
+both on the CPU).  The op's backward is median_plain's gradient, so a CUDA
 input that requires grad launches the kernel too.  The params set only the
 radius, an integer, so no gradient reaches them, on either path.
 
@@ -24,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
-from reconfigisp_tpu_torch.ops.kernels._vjp import WindowedKernel
+from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.ops.kernels.bilateral import (
     pad_reflect, size01_to_radius)
 from reconfigisp_tpu_torch.ops.nn import clip
@@ -63,13 +64,17 @@ def median_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     return clip(out, 0.0, 1.0)
 
 
-def median(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel for a CUDA tensor, the plain form for a CPU tensor.
-    The kernel reads contiguous NHWC, so other strides are copied first."""
+def _count() -> None:
     global launches
-    if not _build.on_card("median", x, params):
-        return median_plain(x, params)
-    out = WindowedKernel.apply(x, params.detach(), "median", median_plain, 1,
-                               HALO)
     launches += 1
-    return out
+
+
+op = _vjp.windowed_op("median", median_plain, 1, HALO, _count)
+
+
+def median(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """The op (the CUDA kernel for a CUDA tensor, the plain form for a CPU
+    tensor), or median_plain itself where _vjp.plain_here says so."""
+    if _vjp.plain_here("median", x, params):
+        return median_plain(x, params)
+    return op(x, params.detach())

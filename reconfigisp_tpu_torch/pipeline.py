@@ -19,19 +19,10 @@ from typing import Optional
 import torch
 from torch import nn
 
+from reconfigisp_tpu_torch.device import resolve_device
 from reconfigisp_tpu_torch.registry import OpSpec, get_op
 
 _DOMAIN_TOKENS = {"Bayer": "bayer", "Demosaic": "demosaic", "sRGB": "srgb"}
-
-
-def resolve_device(device=None) -> torch.device:
-    """`cuda` unless the caller names a device; raises when CUDA is asked
-    for and absent (the port never falls back to the CPU by itself)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def parse_architecture(arch: str):

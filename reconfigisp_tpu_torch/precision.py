@@ -5,23 +5,30 @@ which the Path-Restore stack keeps its inter-layer activations and runs its
 convolutions: float32 (the default, and the dtype of every parity test) or
 bfloat16, which halves the activation bytes and reaches the tensor cores.
 Eager PyTorch reads the policy at call time, so the JAX package's
-`policy_jit` has no counterpart.
+`policy_jit` has no counterpart; torch.export reads it at trace time
+(deploy.export_pipeline).
 
     with precision.cnn_storage("bf16"):
         y = pipe(x)
+
+or set RECONFIGISP_CNN_STORAGE=bf16 to flip the process-wide default, read
+at import as the JAX package reads it (an unknown name gives float32).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 
 import torch
 
 _DTYPES = {"f32": torch.float32, "float32": torch.float32,
            "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
-_current = contextvars.ContextVar("cnn_storage", default=torch.float32)
+_default = os.environ.get("RECONFIGISP_CNN_STORAGE", "f32")
+_current = contextvars.ContextVar(
+    "cnn_storage", default=_DTYPES.get(_default, torch.float32))
 
 
 def cnn_storage_dtype() -> torch.dtype:

@@ -411,7 +411,8 @@ def dist_mesh(batch_size: int, device: torch.device) -> None:
         return None
     raise NotImplementedError(
         f"dist: true over {data} devices: data-parallel training (DDP) is "
-        "not ported yet (ROADMAP item 8); make one device visible")
+        "not ported yet (ROADMAP.md, the item on parallel/mesh.py and "
+        "parallel/dp.py); make one device visible")
 
 
 def make_yolo_criterion(net, img_size: int, **loss_kw) -> Callable:

@@ -7,7 +7,8 @@ config.parse and running search.run_training.  It runs on the GPU unless `--devi
 exits with an error when CUDA is absent and the CPU was not asked for.  The
 JAX CLI's --platform (choose a JAX backend) and --multihost (start
 jax.distributed) have no counterpart here: --device replaces the first, and
-data parallelism is not ported yet (ROADMAP item 8).
+data parallelism is not ported yet (ROADMAP.md, the item on
+parallel/mesh.py and parallel/dp.py).
 
 Usage:
   python -m reconfigisp_tpu_torch.train --opt configs/SID_isp.yaml \

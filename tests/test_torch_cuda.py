@@ -1,8 +1,10 @@
 """The bilateral, median and fast-NLM CUDA kernels against their plain
 PyTorch forms, on the card, forward and backward, a few steps of step-2
 training through them, the supernet and a second-order DARTS step through them,
-the train and test CLIs on the card, and the YOLOv3 evaluator's forward and
-criterion gradient on the card against the CPU.
+the train and test CLIs on the card, the YOLOv3 evaluator's forward and
+criterion gradient on the card against the CPU, and the kernels as custom
+ops: opcheck, their gradients, and serving artifacts exported on the card
+and on the CPU.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs alone:
@@ -508,3 +510,99 @@ def test_yolo_criterion_gradient_on_cuda_follows_the_cpu(no_tf32):
     (lc, gc), (lg, gg) = out["cpu"], out[str(no_tf32)]
     assert lg == pytest.approx(lc, rel=1e-5)
     assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+
+
+# ------------------------------------------- custom ops and serving artifacts
+
+@pytest.mark.parametrize("name", ["bilateral", "median", "fastnlm"])
+def test_opcheck_on_cuda(cuda, name):
+    """torch.library.opcheck of reconfigisp::<name> on the card: schema,
+    autograd registration, the fake implementation against the kernel, and
+    AOT autograd's forward and gradient against eager."""
+    x, p = _case((2, 24, 40, 3), _grad_rows(name, 2), cuda)
+    torch.library.opcheck(_MODULES[name].op, (x.requires_grad_(),
+                                   p.requires_grad_(name != "median")))
+
+
+@pytest.mark.parametrize("shape", [(3, 48, 40, 3), (2, 700, 24, 1)],
+                         ids=["direct", "strip"])
+@pytest.mark.parametrize("name", ["bilateral", "median", "fastnlm"])
+def test_op_gradient_is_what_the_autograd_function_gave(cuda, name, shape):
+    """The op's backward returns _vjp.vjp of the plain form on the saved
+    inputs, as the autograd Function it replaces did: bit for bit, direct
+    and by strips, launching the kernel once."""
+    x, p = _case(shape, _grad_rows(name, shape[0]), cuda)
+    g = torch.randn(shape, generator=torch.Generator(cuda).manual_seed(6),
+                    device=cuda)
+    mod = _MODULES[name]
+    needs = (True, name != "median")
+    xs, ps = x.clone().requires_grad_(), p.clone().requires_grad_(needs[1])
+    before = mod.launches
+    out = getattr(denoise, name)(xs, ps)
+    assert mod.launches == before + 1
+    got = torch.autograd.grad(out, [xs, ps][:1 + needs[1]], g)
+    want = _vjp.vjp(_PLAIN[name], mod.HALO, x, p, g, needs)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+_SLICE1 = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"
+_KERNELS_OF = {_SLICE1: ("bilateral",), _SLICE2: ("median", "fastnlm")}
+
+
+def _bank_pipeline(arch, device):
+    from reconfigisp_tpu_torch.utils import checkpoint
+    bank = checkpoint.load_network(
+        str(_REPO / "experiments" / "proxies" / "default.ckpt"))
+    pipe = rt.Pipeline(arch, device=device)
+    return pipe.load_state(convert.state_from_bank(bank, pipe))
+
+
+def test_artifact_exported_on_cuda_equals_serving_fn(no_tf32):
+    """Slice 2 exported on the card with the tiled engine at 2x512x512x1
+    (patch 256, stride 224, chunk 4): the loaded artifact within 1e-4 of
+    make_serving_fn, the same launches of each kernel."""
+    from reconfigisp_tpu_torch import deploy
+    cuda = no_tf32
+    pipe = _bank_pipeline(_SLICE2, cuda)
+    tiling = dict(patch=256, stride=224, chunk=4)
+    loaded = deploy.load_pipeline(deploy.export_pipeline(
+        pipe, (2, 512, 512, 1), **tiling))
+    x = torch.rand((2, 512, 512, 1), device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(7))
+    counts = []
+    outs = []
+    for fn in (loaded, deploy.make_serving_fn(pipe, **tiling)):
+        km.launches = kf.launches = kb.launches = 0
+        outs.append(fn(x))
+        counts.append((kb.launches, km.launches, kf.launches))
+    torch.cuda.synchronize()
+    assert counts[0] == counts[1] == (0, 3, 3)
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", [_SLICE1, _SLICE2])
+def test_artifact_exported_on_cpu_runs_on_cuda(no_tf32, arch):
+    """An artifact traced on the CPU, loaded onto the card (its constants
+    and device arguments moved), launches the kernels and agrees with
+    make_serving_fn on the card within 1e-4."""
+    from reconfigisp_tpu_torch import deploy
+    cuda = no_tf32
+    tiling = dict(patch=64, stride=56, chunk=4)
+    blob = deploy.export_pipeline(_bank_pipeline(arch, "cpu"),
+                                  (1, 176, 232, 1), **tiling)
+    loaded = deploy.load_pipeline(blob)
+    assert loaded.device.type == "cuda"
+    x = torch.rand((1, 176, 232, 1), device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(8))
+    kb.launches = km.launches = kf.launches = 0
+    got = loaded(x)
+    torch.cuda.synchronize()
+    launches = {"bilateral": kb.launches, "median": km.launches,
+                "fastnlm": kf.launches}
+    assert got.device.type == "cuda"
+    assert launches == {k: 3 if k in _KERNELS_OF[arch] else 0
+                        for k in launches}
+    want = deploy.make_serving_fn(_bank_pipeline(arch, cuda), **tiling)(x)
+    assert float((got - want).abs().max()) <= 1e-4

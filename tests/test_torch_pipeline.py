@@ -189,7 +189,7 @@ def _op_matches_jax(domain, idx):
     ("demosaic", 4), ("srgb", 2), ("srgb", 3), ("srgb", 4), ("srgb", 8),
     ("srgb", 9), ("srgb", 14), ("srgb", 15), ("srgb", 16), ("srgb", 17),
     ("srgb", 18)])
-def test_unported_op_raises(domain, idx):
+def test_more_ops_and_proxies_match_jax(domain, idx):
     """These ops of the zoo build and run in the port, natively and as
     proxies, and match the JAX ops (_op_matches_jax)."""
     _op_matches_jax(domain, idx)
