@@ -90,7 +90,19 @@ Phases, one line each:
      same launches, ms a frame of both; (d) the flagship exported
      whole-frame with a symbolic batch, served at batch 1 and 2, and slice
      1 exported whole-frame and served in this process, its bilateral
-     launches counted.
+     launches counted;
+ 12. one dispatch per search step: the search trainers of phases 8-10 run
+     each step as a replay of one captured CUDA graph (their launches
+     counted through the replays); here each captured run is held against
+     eager steps (make_darts_step) from one start on the same batches:
+     (a) SID_search order 2, 8 steps eager, captured at K = 1 and at K = 4
+     steps a dispatch, ms a step, the capture's seconds and pool, and one
+     captured step under torch.profiler (busy share, kernels a replay);
+     (b) order 1 at planted_search.yaml's rates; (c) DartsFtTrainer at
+     planted_search_ft.yaml, K = 1 and K = 2, 2 steps (the replay memories
+     equal eager's), finetune_proxies, 2 steps against eager steps from
+     the same tuned state (the replays read the tuned proxies); (d)
+     darts_yolo at yolo_search.yaml's geometry, 3 steps.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -101,6 +113,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -134,6 +147,7 @@ from reconfigisp_tpu_torch.parallel.tiling import feather_mask, tile_positions
 from reconfigisp_tpu_torch.ops import color, demosaic, denoise
 from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.search import DartsFtTrainer, DartsTrainer, IspTrainer
+from reconfigisp_tpu_torch.search.darts import _leaves
 from reconfigisp_tpu_torch.search.proxy_pretrain import pretrain_modules
 from reconfigisp_tpu_torch.search.trainer import (
     build_yolo_evaluator, make_yolo_criterion)
@@ -243,7 +257,8 @@ KERNELS = {
 
 # Integer min/max instructions of csrc/median.cu's pruned selection networks
 # for one 2x2 block of pixels and one channel, by radius (its source note;
-# tests/test_torch_windowed.py counts them in its mirror of the networks).
+# tests/test_torch_windowed_median.py counts them in its mirror of the
+# networks).
 # Larger radii bisect.
 MEDIAN_NETWORK_MINMAX = {1: 114, 2: 412, 3: 952, 4: 1724}
 
@@ -2279,6 +2294,399 @@ def phase_deployment(dev, bank) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 12
+
+# Phase 12: one dispatch per search step.  On CUDA the search trainers run
+# each step as a replay of one captured CUDA graph (search/darts.py,
+# make_darts_multi_step), K steps a dispatch; the eager step
+# (make_darts_step, the CPU path) is the reference.  Each captured run is
+# held against an eager run from the same start on the same batches, within
+# phase 8's SEARCH_*_TOL (phase 10's for darts_yolo); the same kernels run
+# on the same inputs, and the capture-safe plain forms of the backward give
+# the host-read forms' values bit for bit, so 0 is expected up to rounding
+# (cuDNN's choices, atomics).  The DARTS state (momentum and Adam moments)
+# is held relative to each tensor's largest value within
+# DISPATCH_STATE_RTOL (printed only for darts_yolo), adam_t exactly.  Cuts: DISPATCH_STEPS steps of
+# SID_search's 200,000, ORDER1_DISPATCH_STEPS of planted_search's 1,500,
+# 2 + 2 of planted_search_ft's with one tuning round between, and
+# YOLO_INPROC_STEPS of yolo_search's 40,000; the geometry is the configs'.
+DISPATCH_STEPS = 8           # 12a: steps per run
+DISPATCH_TIMED_FROM = 2      # 12a: steps 3-8 timed (eager and K = 1)
+DISPATCH_K = 4               # 12a: steps a dispatch of the K-step run
+ORDER1_DISPATCH_STEPS = 4    # 12b
+FT_DISPATCH_STEPS = 2        # 12c: steps before and after finetune_proxies
+FT_DISPATCH_K = 2
+# The DARTS state is sums of the step's gradients (Adam's v of their
+# squares, so twice their relative error), whose relative error phase 8
+# puts at about 1e-4 (the Hessian term's probes difference two passes of
+# the same rounding); DISPATCH_STATE_RTOL leaves 10x over that estimate,
+# 5x over v's, as phase 8's tolerances leave 10-100x over theirs.  The
+# alphas and theta the state moves are held at SEARCH_*_TOL.
+DISPATCH_STATE_RTOL = 1e-3
+
+
+def _planted_pairs(dev, opt, count: int, seed: int) -> list:
+    """`count` (train, val) pairs of planted crops at the options'
+    geometry, made on the card from `seed`."""
+    data = opt["datasets"]["train"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(make_planted_batch(dev, data["batch_size"], data["data_size"],
+                                gen),
+             make_planted_batch(dev, data["batch_size"], data["data_size"],
+                                gen)) for _ in range(count)]
+
+
+def _with_dispatch(opt, k: int):
+    """The options with train.steps_per_dispatch = k."""
+    return {**opt, "train": {**opt["train"], "steps_per_dispatch": k}}
+
+
+def _eager_steps(trainer, pairs, *, record=False, timed_from=None) -> dict:
+    """The trainer's step function (make_darts_step) called eagerly on each
+    pair, as search_step schedules it, with no graph; the trainer's state
+    advances.  -> {"logs", "launches", "ms"} with every count set to 0 just
+    before and read just after, steps from `timed_from` on timed."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_counts()
+    logs = []
+    for i, (tb, vb) in enumerate(pairs):
+        if i == timed_from:
+            start.record()
+        trainer.step_idx += 1
+        batch = {k: trainer._tensor(v)
+                 for k, v in trainer.step_batch(tb, vb).items()}
+        trainer.variables, trainer.opt_state, out = trainer._step(
+            trainer.variables, trainer.opt_state, batch,
+            trainer.schedule(trainer.step_idx))
+        trainer._last_aux = {k: out.pop(k) for k in list(out)
+                             if k.startswith("_")}
+        logs.append({k: float(v) for k, v in out.items()})
+        if record:
+            trainer.record_intermediates()
+    end.record()
+    torch.cuda.synchronize()
+    ms = (start.elapsed_time(end) / (len(pairs) - timed_from)
+          if timed_from is not None else None)
+    return {"logs": logs, "launches": _counts(), "ms": ms}
+
+
+def _captured_steps(trainer, pairs, *, record=False, timed_from=None
+                    ) -> dict:
+    """search_step on each pair (on the card a replay of the step's graph,
+    K a dispatch), then a flush; as _eager_steps, and the first
+    dispatch's wall seconds (warm-up, capture and its replays)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    _zero_counts()
+    logs, first_s = [], None
+    for i, (tb, vb) in enumerate(pairs):
+        if i == timed_from:
+            start.record()
+        t0 = time.perf_counter()
+        logs.append(trainer.search_step(tb, vb))
+        if first_s is None and trainer.graph is not None:
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        if record:
+            trainer.record_intermediates()
+    trainer.flush()
+    end.record()
+    torch.cuda.synchronize()
+    ms = (start.elapsed_time(end) / (len(pairs) - timed_from)
+          if timed_from is not None else None)
+    return {"logs": logs, "launches": _counts(), "ms": ms,
+            "first_dispatch_s": first_s}
+
+
+def _state_diff(a, b) -> tuple:
+    """(alphas, theta, DARTS state relative to its largest value, adam_t)
+    differences of two trainers."""
+    state = 0.0
+    for key in ("momentum", "adam_m", "adam_v"):
+        for x, y in zip(_leaves(a.opt_state[key]),
+                        _leaves(b.opt_state[key])):
+            scale = max(float(y.abs().max()), 1e-30)
+            state = max(state, float((x - y).abs().max()) / scale)
+    return (_max_diff(a.variables["alphas"], b.variables["alphas"]),
+            _max_diff(a.variables["theta"], b.variables["theta"]), state,
+            int(a.opt_state["adam_t"]) - int(b.opt_state["adam_t"]))
+
+
+def _hold_dispatch(what: str, got, ref, got_logs: list, ref_logs: list,
+                   loss_rtol=SEARCH_LOSS_RTOL, alpha_tol=SEARCH_ALPHA_TOL,
+                   theta_tol=SEARCH_THETA_TOL,
+                   state_rtol=DISPATCH_STATE_RTOL) -> None:
+    """Raise unless trainer `got` is trainer `ref` within the tolerances,
+    each of got_logs against the ref_logs step it pairs with; the DARTS
+    state is printed, and held unless state_rtol is None."""
+    loss_diff = max(abs(a[k] - b[k]) / abs(b[k])
+                    for a, b in zip(got_logs, ref_logs)
+                    for k in ("loss", "val_loss"))
+    alpha, theta, state, adam_t = _state_diff(got, ref)
+    line("phase 12 captured vs eager", run=what,
+         max_loss_rel_diff=f"{loss_diff:.3e}", loss_rtol=loss_rtol,
+         max_alpha_diff=f"{alpha:.3e}", alpha_tol=alpha_tol,
+         max_theta_diff=f"{theta:.3e}", theta_tol=f"{theta_tol:.3e}",
+         max_state_rel_diff=f"{state:.3e}", state_rtol=state_rtol,
+         adam_t_diff=adam_t)
+    if not (loss_diff <= loss_rtol and alpha <= alpha_tol
+            and theta <= theta_tol and adam_t == 0
+            and (state_rtol is None or state <= state_rtol)):
+        raise AssertionError(f"{what}: the captured run parts from eager")
+
+
+def _profile_step(run) -> dict:
+    """run() once under torch.profiler -> its wall ms, the device's busy
+    ms (the union of the kernels' spans) and the kernels and copies it
+    launched.  The profiler's raw events are read, not its event tree,
+    whose build takes tens of seconds at a replay's 10^5 kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, kernels = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA \
+                or e.is_user_annotation():
+            continue
+        spans.append((e.start_ns(), e.end_ns()))
+        kernels += not any(w in e.name().lower()
+                           for w in ("memcpy", "memset"))
+    if not spans:
+        raise AssertionError("the profiler recorded no device time")
+    busy_ns, reach = 0, None
+    for start, stop in sorted(spans):
+        if reach is None or start > reach:
+            busy_ns, reach = busy_ns + stop - start, stop
+        elif stop > reach:
+            busy_ns, reach = busy_ns + stop - reach, stop
+    return {"wall_ms": wall_ms, "busy_ms": busy_ns / 1e6,
+            "kernels": kernels, "copies": len(spans) - kernels}
+
+
+def phase_dispatch_sid(dev, bank) -> dict:
+    """12a: SID_search order 2, DISPATCH_STEPS steps eager, captured at
+    K = 1 and at K = DISPATCH_K, from one start on the same planted
+    batches; ms a step, the busy share and kernels of a captured step, the
+    capture's seconds and pool.  -> the replays' launches."""
+    opt = search_options(SID_SEARCH)
+    pairs = _planted_pairs(dev, opt, DISPATCH_STEPS, seed=12)
+    eager = make_search_trainer(dev, bank, opt)
+    ref = _eager_steps(eager, pairs, timed_from=DISPATCH_TIMED_FROM)
+    expected = {name: 15 * DISPATCH_STEPS for name in KERNELS}
+    if ref["launches"] != expected:
+        raise AssertionError(f"eager launches {ref['launches']}")
+    runs = {}
+    for k in (1, DISPATCH_K):
+        trainer = make_search_trainer(dev, bank, _with_dispatch(opt, k))
+        run = _captured_steps(trainer, pairs, timed_from=(
+            DISPATCH_TIMED_FROM if k == 1 else k))
+        graph = trainer.graph
+        line("phase 12a SID_search", run=f"captured_k{k}", order=2,
+             batch=tuple(pairs[0][0]["noisy"].shape), steps=DISPATCH_STEPS,
+             ms_per_step=f"{run['ms']:.3f}",
+             eager_ms_per_step=f"{ref['ms']:.3f}",
+             first_dispatch_s=f"{run['first_dispatch_s']:.2f}",
+             capture_s=f"{graph.capture_s:.2f}",
+             capture_record_s=f"{graph.record_s:.2f}",
+             pool_mib=f"{graph.pool_bytes / 2**20:.1f}",
+             launches=json.dumps(run["launches"]).replace(" ", ""),
+             replay_launches=json.dumps(graph.launches).replace(" ", ""),
+             warmup_launches=json.dumps(graph.warmup_launches)
+             .replace(" ", ""))
+        if run["launches"] != expected or graph.launches != {
+                name: 15 for name in KERNELS}:
+            raise AssertionError(f"captured K={k}: launches {run['launches']}"
+                                 f", a replay {graph.launches}")
+        # K = 1 logs every step; K = 4 returns step 4's logs at steps 4-7
+        # and step 8's after the flush
+        if k == 1:
+            got_logs, ref_logs = run["logs"], ref["logs"]
+        else:
+            got_logs = [run["logs"][k - 1], trainer.last_logs]
+            ref_logs = [ref["logs"][k - 1], ref["logs"][-1]]
+        _hold_dispatch(f"SID_search order 2 K={k}", trainer, eager, got_logs,
+                       ref_logs)
+        runs[k] = (trainer, run)
+    _hold_dispatch(f"SID_search K={DISPATCH_K} vs K=1", runs[DISPATCH_K][0],
+                   runs[1][0], [runs[DISPATCH_K][0].last_logs],
+                   [runs[1][0].last_logs])
+
+    trainer = runs[1][0]
+    tb, vb = pairs[0]
+    t0 = time.perf_counter()
+    prof = _profile_step(lambda: trainer.search_step(tb, vb))
+    line("phase 12a captured step profile", run="captured_k1",
+         profile_s=f"{time.perf_counter() - t0:.1f}",
+         wall_ms=f"{prof['wall_ms']:.3f}", busy_ms=f"{prof['busy_ms']:.3f}",
+         busy_share=f"{prof['busy_ms'] / prof['wall_ms']:.4f}",
+         kernels_per_replay=prof["kernels"], copies=prof["copies"],
+         nvidia_smi=repr(nvidia_smi(dev.index or 0)))
+    return {name: sum(r["launches"][name] for _, r in runs.values())
+            for name in KERNELS}
+
+
+def phase_dispatch_order1(dev, bank) -> dict:
+    """12b: first order at planted_search.yaml's rates, captured against
+    eager.  -> the replays' launches."""
+    opt = search_options(PLANTED_SEARCH)
+    pairs = _planted_pairs(dev, opt, ORDER1_DISPATCH_STEPS, seed=13)
+    eager = make_search_trainer(dev, bank, opt, order=1)
+    ref = _eager_steps(eager, pairs)
+    trainer = make_search_trainer(dev, bank, opt, order=1)
+    run = _captured_steps(trainer, pairs)
+    line("phase 12b planted_search", run="captured_k1", order=1,
+         steps=ORDER1_DISPATCH_STEPS,
+         capture_s=f"{trainer.graph.capture_s:.2f}",
+         pool_mib=f"{trainer.graph.pool_bytes / 2**20:.1f}",
+         launches=json.dumps(run["launches"]).replace(" ", ""))
+    if run["launches"] != ref["launches"]:
+        raise AssertionError(f"order 1: launches {run['launches']} != "
+                             f"{ref['launches']}")
+    _hold_dispatch("planted_search order 1", trainer, eager, run["logs"],
+                   ref["logs"])
+    return run["launches"]
+
+
+def _shadow(dev, bank, opt, trainer, omega=None):
+    """A DartsFtTrainer for eager steps that holds `trainer`'s variables,
+    DARTS state and step (omega's values from `omega` if given)."""
+    shadow = make_search_trainer(dev, bank, opt, ft=True)
+    variables = dict(trainer.variables)
+    if omega is not None:
+        variables["omega"] = omega
+    shadow._assign(variables, trainer.opt_state)
+    shadow.step_idx = trainer.step_idx
+    return shadow
+
+
+def phase_dispatch_ft(dev, bank) -> dict:
+    """12c: DartsFtTrainer at planted_search_ft.yaml, captured at K = 1 and
+    K = FT_DISPATCH_K: FT_DISPATCH_STEPS steps, each recorded, against
+    eager steps (the replay memories equal), one finetune_proxies, then
+    FT_DISPATCH_STEPS more against eager steps from the trainer's own state
+    after the tuning: the replays read the tuned proxies, and an eager run
+    from the same state with the untuned ones parts from them by far more
+    than the tolerance.  (The tuning's Adam moves a weight whose gradient
+    is near its eps by up to lr a step on rounding alone, so runs are
+    compared from one state after it, not across it.)  -> the replays'
+    launches."""
+    opt = search_options(PLANTED_SEARCH_FT)
+    pairs = _planted_pairs(dev, opt, 2 * FT_DISPATCH_STEPS, seed=14)
+    first, second = pairs[:FT_DISPATCH_STEPS], pairs[FT_DISPATCH_STEPS:]
+    eager = make_search_trainer(dev, bank, opt, ft=True)
+    ref = _eager_steps(eager, first, record=True)
+    total = {name: 0 for name in KERNELS}
+    for k in (1, FT_DISPATCH_K):
+        trainer = make_search_trainer(dev, bank, _with_dispatch(opt, k),
+                                      ft=True)
+        run = _captured_steps(trainer, first, record=True)
+        memory = max(float((a - b).abs().max())
+                     for a, b in zip(trainer.ft_data, eager.ft_data))
+        got_logs, ref_logs = run["logs"][k - 1::k], ref["logs"][k - 1::k]
+        _hold_dispatch(f"planted_search_ft K={k} before tuning", trainer,
+                       eager, got_logs, ref_logs)
+        untuned = {name: copy.deepcopy(m)
+                   for name, m in trainer.variables["omega"].items()}
+        ft = trainer.finetune_proxies()
+        tuned_ref = _shadow(dev, bank, opt, trainer)
+        untuned_ref = _shadow(dev, bank, opt, trainer, omega=untuned)
+        want = _eager_steps(tuned_ref, second, record=True)
+        stale = _eager_steps(untuned_ref, second)
+        after = _captured_steps(trainer, second, record=True)
+        moved = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(stale["logs"], want["logs"]))
+        n_new = len(tuned_ref.ft_data)
+        memory_after = max(float((a - b).abs().max()) for a, b in zip(
+            trainer.ft_data[-n_new:], tuned_ref.ft_data))
+        line("phase 12c planted_search_ft", run=f"captured_k{k}",
+             steps=2 * FT_DISPATCH_STEPS, memory=len(trainer.ft_data),
+             eager_memory=len(eager.ft_data),
+             max_memory_diff=f"{memory:.3e}",
+             max_memory_diff_after_tuning=f"{memory_after:.3e}",
+             memory_tol=SEARCH_ALPHA_TOL,
+             untuned_loss_rel_move=f"{moved:.3e}",
+             ft_losses=json.dumps({k_: round(v, 8) for k_, v in ft.items()})
+             .replace(" ", ""))
+        if len(eager.ft_data) != len(trainer.ft_data) - n_new \
+                or memory > SEARCH_ALPHA_TOL \
+                or memory_after > SEARCH_ALPHA_TOL:
+            raise AssertionError(f"ft K={k}: the replay memory parts")
+        if not moved > 10 * SEARCH_LOSS_RTOL:
+            raise AssertionError(f"the tuning moved the loss by {moved:.3e}")
+        _hold_dispatch(f"planted_search_ft K={k} after tuning", trainer,
+                       tuned_ref, after["logs"][k - 1::k],
+                       want["logs"][k - 1::k])
+        for name in KERNELS:
+            total[name] += run["launches"][name] + after["launches"][name]
+    return total
+
+
+def phase_dispatch_yolo(dev, bank) -> dict:
+    """12d: darts_yolo at yolo_search.yaml's geometry under phase 10's
+    detector: YOLO_INPROC_STEPS captured steps against eager, at phase 10's
+    tolerances (losses, alphas, theta relative to its move).  The seeded
+    detector's loss is almost flat, so the DARTS state's moments are
+    rounding-sized in places and are printed, not held.  -> the replays'
+    launches."""
+    with tempfile.TemporaryDirectory() as root:
+        tmp = Path(root)
+        _, weights = write_yolo_weights(tmp)
+        opt = config.parse_dict(_yolo_options(
+            YOLO_SEARCH, tmp, weights, {"n": 2 * YOLO_FRAMES}),
+            root=str(tmp))
+        n = opt["datasets"]["train"]["batch_size"]
+        size = opt["datasets"]["train"]["data_size"]
+        pairs = [(_yolo_batch(opt, 2 * i * n, n, dev),
+                  _yolo_batch(opt, (2 * i + 1) * n, n, dev))
+                 for i in range(YOLO_INPROC_STEPS)]
+        criterion = make_yolo_criterion(build_yolo_evaluator(opt["yolo"], dev),
+                                        size)
+        kw = {"criterion": criterion, "target_key": "label"}
+        eager = make_search_trainer(dev, bank, opt, **kw)
+        ref = _eager_steps(eager, pairs, timed_from=1)
+        trainer = make_search_trainer(dev, bank, opt, **kw)
+        run = _captured_steps(trainer, pairs, timed_from=1)
+        start = make_search_trainer(dev, bank, opt, **kw).variables
+    theta_move = _max_diff(eager.variables["theta"], start["theta"])
+    line("phase 12d darts_yolo", run="captured_k1",
+         batch=tuple(pairs[0][0]["noisy"].shape), steps=YOLO_INPROC_STEPS,
+         ms_per_step=f"{run['ms']:.3f}", eager_ms_per_step=f"{ref['ms']:.3f}",
+         capture_s=f"{trainer.graph.capture_s:.2f}",
+         pool_mib=f"{trainer.graph.pool_bytes / 2**20:.1f}",
+         launches=json.dumps(run["launches"]).replace(" ", ""))
+    expected = {name: 15 * YOLO_INPROC_STEPS for name in KERNELS}
+    if run["launches"] != expected or ref["launches"] != expected:
+        raise AssertionError(f"darts_yolo: launches {run['launches']}, "
+                             f"eager {ref['launches']}")
+    _hold_dispatch("darts_yolo", trainer, eager, run["logs"], ref["logs"],
+                   loss_rtol=YOLO_LOSS_RTOL, alpha_tol=YOLO_ALPHA_TOL,
+                   theta_tol=YOLO_THETA_RTOL * theta_move, state_rtol=None)
+    return run["launches"]
+
+
+def phase_dispatch(dev, bank) -> dict:
+    """Phase 12: 12a-12d.  -> each kernel's launches through replays."""
+    parts, seconds = [], []
+    for part in (phase_dispatch_sid, phase_dispatch_order1, phase_dispatch_ft,
+                 phase_dispatch_yolo):
+        t0 = time.perf_counter()
+        parts.append(part(dev, bank))
+        seconds.append(f"{time.perf_counter() - t0:.1f}")
+    total = {name: sum(p[name] for p in parts) for name in KERNELS}
+    line("phase 12 launches", replays=json.dumps(total).replace(" ", ""),
+         seconds="/".join(seconds))
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2307,6 +2715,7 @@ def main() -> int:
     entry = phase_entry_points(dev, bank, train_ms[SLICE2], search_ms)
     yolo_launches = phase_yolo(dev, bank)
     artifact_launches = phase_deployment(dev, bank)
+    graph_launches = phase_dispatch(dev, bank)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -2318,6 +2727,7 @@ def main() -> int:
         "entry_point_launches": entry["entry"][name],
         "yolo_launches": yolo_launches[name],
         "artifact_launches": artifact_launches[name],
+        "graph_launches": graph_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,12 +23,21 @@ has no autograd of its own: the kernels are differentiable once, as the DARTS
 step needs (it differentiates each kernel once).  `vjp` and `strip_vjp` are
 plain functions of the plain form, so the CPU tests reach the code the
 backward runs.
+
+A CUDA graph (search/darts.make_darts_multi_step) captures the backward op
+with the rest of a search step.  A sync is an error inside a capture, so
+each plain form has a capture-safe route that reads no tensor on the host:
+it keeps its window bounds on the device (`bounds_static`), and on the same
+inputs it gives the host-read route's value and gradients bit for bit.  A
+replay runs no Python, so no wrapper counts what it launches: the graph
+runner tallies the launches its capture made (`tally_launches`) and adds
+them to the kernels' counts on each replay (`count_launches`).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -38,6 +47,62 @@ DIRECT_ROWS = 640  # direct backward up to this many rows (_VJP_DIRECT_ROWS)
 STRIP = 256        # output rows a chunk of the strip backward owns
 
 Plain = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+_static_depth = 0   # open static_bounds() blocks
+_on_launch: dict[str, Callable[[], None]] = {}   # kernel name -> its count
+_tally: Optional[dict] = None   # launches of the open tally_launches() block
+
+
+@contextlib.contextmanager
+def static_bounds():
+    """Every plain form takes its capture-safe route within the block, on
+    every thread (the autograd engine runs a CUDA backward on its own): the
+    graph runner's warm-up and capture, and the CPU tests of the route."""
+    global _static_depth
+    _static_depth += 1
+    try:
+        yield
+    finally:
+        _static_depth -= 1
+
+
+def bounds_static(x: torch.Tensor, static: Optional[bool] = None) -> bool:
+    """Whether a plain form on x keeps its window bounds on the device, as a
+    capture needs: `static` where the caller says, else within
+    static_bounds() or while x's current stream captures a CUDA graph."""
+    if static is not None:
+        return static
+    return _static_depth > 0 or (
+        x.is_cuda and torch.cuda.is_current_stream_capturing())
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within the block the kernels' launches are tallied in the yielded
+    {name: launches} instead of their modules' counts: a graph's capture,
+    whose launches happen on each replay, and the warm-up before it, which
+    is no step of the run."""
+    global _tally
+    outer, _tally = _tally, {name: 0 for name in _on_launch}
+    try:
+        yield _tally
+    finally:
+        _tally = outer
+
+
+def count_launches(tally: dict) -> None:
+    """Add a replay's launches, as its capture tallied them, to the
+    kernels' counts."""
+    for name, n in tally.items():
+        for _ in range(n):
+            _on_launch[name]()
+
+
+def _launched(name: str) -> None:
+    if _tally is not None:
+        _tally[name] += 1
+    else:
+        _on_launch[name]()
 
 
 def _grads(plain: Plain, x, params, g, needs):
@@ -113,13 +178,15 @@ def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
                 on_launch: Callable[[], None]):
     """Define reconfigisp::<name> and its backward op (module docstring).
     `on_launch` is called once per kernel launch, after it, and nowhere
-    else: not on the CPU, not under fake tensors.  -> the forward op."""
+    else: not on the CPU, not under fake tensors; within tally_launches()
+    the launch is tallied there instead.  -> the forward op."""
+    _on_launch[name] = on_launch
 
     @torch.library.custom_op(f"reconfigisp::{name}", mutates_args=())
     def forward(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cuda":
             out = _build.launch(name, x, params, n_params)
-            on_launch()
+            _launched(name)
             return out
         return plain(x, params).contiguous()
 

@@ -19,6 +19,8 @@ x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
@@ -41,10 +43,16 @@ def pad_reflect(x: torch.Tensor, r: int) -> torch.Tensor:
     return reflect(reflect(x, r, 1), r, 2)
 
 
-def bilateral_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+def bilateral_plain(x: torch.Tensor, params: torch.Tensor,
+                    static: Optional[bool] = None) -> torch.Tensor:
     """Tap loop over column offsets (outer) and row offsets (inner), as
     _bilateral_jnp sums them.  Offsets beyond the largest radius in the batch
-    carry zero weight for every image and are not visited."""
+    carry zero weight for every image and are not visited; on the
+    capture-safe route (_vjp.bounds_static, or `static`) the loop runs to
+    MAX_R, as _bilateral_jnp's does, since that radius is not read on the
+    host: the taps it adds have weight exactly 0 and add exact zeros to the
+    sums and to every gradient, so value and gradients are the same bit for
+    bit."""
     n, h, w, c = x.shape
     radius = size01_to_radius(params[:, 0])[:, None, None, None]
     sigma_color = (1.0 + 99.0 * params[:, 1])[:, None, None, None]
@@ -53,7 +61,7 @@ def bilateral_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     inv_2ss2 = 0.5 / (sigma_space ** 2)
     x255 = x * 255.0
     padded = pad_reflect(x255, MAX_R)
-    r_max = int(radius.max())
+    r_max = MAX_R if _vjp.bounds_static(x, static) else int(radius.max())
     num = torch.zeros_like(x255)
     den = torch.zeros_like(x255)
     for dx in range(-r_max, r_max + 1):

@@ -25,6 +25,8 @@ decay h = 1 + 99 decay01 (0..255 scale) are per image.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
@@ -49,28 +51,78 @@ def box_filter(d: torch.Tensor, b: int) -> torch.Tensor:
     return sum(cols[:, :, :, i:i + w] for i in range(k)) / k
 
 
-def fastnlm_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+def box_filter_static(d: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """box_filter with the block radius b a 0-d device tensor, read on the
+    device only: the 2 MAX_R + 1 row offsets of reflect(d, MAX_R), each
+    times the mask |i| <= b, summed in box_filter's order and divided by
+    2b+1, then the columns alike.  Within b rows a reflection of width MAX_R
+    is one of width b, the masked terms add exact zeros, and the division
+    rounds as box_filter's: the same sums bit for bit, value and
+    gradient."""
+    h, w = d.shape[2:]
+    offsets = torch.arange(-MAX_R, MAX_R + 1, device=d.device)
+    mask = (offsets.abs() <= b).to(d.dtype)
+    k = (2 * b + 1).to(d.dtype)
+    # torch multiplies a CUDA tensor divided by a Python number by its
+    # reciprocal and divides a CPU tensor: the same roundings here
+    div = ((lambda t: t * torch.reciprocal(k)) if d.is_cuda
+           else (lambda t: t / k))
+    span = range(2 * MAX_R + 1)
+    rows = reflect(d, MAX_R, 2)
+    acc = div(sum(rows[:, :, i:i + h] * mask[i] for i in span))
+    cols = reflect(acc, MAX_R, 3)
+    return div(sum(cols[:, :, :, i:i + w] * mask[i] for i in span))
+
+
+def fastnlm_plain(x: torch.Tensor, params: torch.Tensor,
+                  static: Optional[bool] = None) -> torch.Tensor:
     """Search offsets in _fastnlm_jnp's order, column offset outer and row
     offset inner.  Offsets beyond the largest search radius in the batch
-    carry zero weight for every image and are not visited."""
+    carry zero weight for every image and are not visited.
+
+    On the capture-safe route (_vjp.bounds_static, or `static`) no radius
+    is read on the host: the offsets run to MAX_R, as _fastnlm_jnp's do,
+    and the block is box_filter_static, the device's choice where
+    _fastnlm_jnp switches.  The offsets' squared differences are stacked
+    and box-filtered in one pass (a box sum runs along rows and columns, so
+    each value's sum is the same), which keeps the graph a capture records
+    near the host-read route's size; the weights and the sums into num and
+    den stay one offset at a time, in order.  The same value and gradients
+    bit for bit."""
     n, h, w, c = x.shape
-    b = int(size01_to_radius(params[0, 0]))
+    static = _vjp.bounds_static(x, static)
     search = size01_to_radius(params[:, 1])[:, None, None, None]
     inv_h2 = 1.0 / ((1.0 + 99.0 * params[:, 2]) ** 2)[:, None, None, None]
     x255 = (x * 255.0).permute(0, 3, 1, 2)
     padded = reflect(reflect(x255, MAX_R, 2), MAX_R, 3)
-    s_max = int(search.max())
+    s_max = MAX_R if static else int(search.max())
+    offsets = [(dx, dy) for dx in range(-s_max, s_max + 1)
+               for dy in range(-s_max, s_max + 1)]
+
+    def tap_at(dx, dy):
+        return padded[:, :, MAX_R + dy:MAX_R + dy + h,
+                      MAX_R + dx:MAX_R + dx + w]
+
+    if static:
+        taps = [tap_at(dx, dy) for dx, dy in offsets]
+        diffs = torch.stack([tap - x255 for tap in taps])
+        boxed = box_filter_static((diffs ** 2).flatten(0, 1),
+                                  size01_to_radius(params[0, 0]))
+        d2s = boxed.unflatten(0, (len(offsets), n)).unbind(0)
+    else:
+        b = int(size01_to_radius(params[0, 0]))
     num = torch.zeros_like(x255)
     den = torch.zeros_like(x255)
-    for dx in range(-s_max, s_max + 1):
-        for dy in range(-s_max, s_max + 1):
-            tap = padded[:, :, MAX_R + dy:MAX_R + dy + h,
-                         MAX_R + dx:MAX_R + dx + w]
+    for i, (dx, dy) in enumerate(offsets):
+        if static:
+            tap, d2 = taps[i], d2s[i]
+        else:
+            tap = tap_at(dx, dy)
             d2 = box_filter((tap - x255) ** 2, b)
-            include = (max(abs(dy), abs(dx)) <= search).to(x.dtype)
-            wgt = include * torch.exp(-d2 * inv_h2)
-            num = num + wgt * tap
-            den = den + wgt
+        include = (max(abs(dy), abs(dx)) <= search).to(x.dtype)
+        wgt = include * torch.exp(-d2 * inv_h2)
+        num = num + wgt * tap
+        den = den + wgt
     out = (num / clip(den, 1e-8)).permute(0, 2, 3, 1)
     return clip(out / 255.0, 0.0, 1.0)
 

@@ -10,8 +10,8 @@ reference on the card; `median` calls the op, except for a CPU input that
 autograd differentiates, which runs median_plain itself.  Both select the exact middle tap, so they agree bit
 for bit: the kernel by pruned selection networks in registers, shared by
 each 2x2 block of pixels, at radii up to 4, and by a bisection on the
-float's order-preserving key above (tests/test_torch_windowed.py emulates
-both on the CPU).  The op's backward is median_plain's gradient, so a CUDA
+float's order-preserving key above (tests/test_torch_windowed_median.py
+emulates both on the CPU).  The op's backward is median_plain's gradient, so a CUDA
 input that requires grad launches the kernel too.  The params set only the
 radius, an integer, so no gradient reaches them, on either path.
 
@@ -22,6 +22,8 @@ batch, as in the JAX package.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
@@ -31,21 +33,16 @@ from reconfigisp_tpu_torch.ops.kernels.bilateral import (
 from reconfigisp_tpu_torch.ops.nn import clip
 
 STRIP = 64  # rows per tap stack in the plain form, as _median_fixed
-HALO = _build.MAX_R  # rows of input one output row reaches
+MAX_R = _build.MAX_R
+HALO = MAX_R  # rows of input one output row reaches
 
 launches = 0  # kernel launches since the caller last set it to 0
 
 
-def median_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """The K = (2r+1)^2 taps of a strip of rows stacked, and the
-    (K//2 + 1)-th smallest taken over them.  Strips bound the stack at K x
-    STRIP rows, as _median_fixed does.  The gradient is _median_taps': the
-    taps times their equality mask over its count, so that the cotangent is
-    split equally among exact ties (kthvalue's own backward sends it all to
-    one of them).  The value stays kthvalue's, bit for bit, as the kernel's;
-    _median_taps' own sum can round a tie by an ulp (ROADMAP, faults)."""
+def _median_fixed(x: torch.Tensor, r: int) -> torch.Tensor:
+    """The median of the (2r+1)^2 window at a radius r known on the host,
+    before the clip."""
     n, h, w, c = x.shape
-    r = int(size01_to_radius(params[0, 0]))
     padded = pad_reflect(x, r)
     k2 = (2 * r + 1) ** 2
     out = torch.empty_like(x)
@@ -61,6 +58,31 @@ def median_plain(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
             tied = (taps * mask).sum(0) / mask.sum(0)
             med = med + (tied - tied.detach())  # med's value, bit for bit
         out[:, y0:y0 + rows] = med
+    return out
+
+
+def median_plain(x: torch.Tensor, params: torch.Tensor,
+                 static: Optional[bool] = None) -> torch.Tensor:
+    """The K = (2r+1)^2 taps of a strip of rows stacked, and the
+    (K//2 + 1)-th smallest taken over them.  Strips bound the stack at K x
+    STRIP rows, as _median_fixed does.  The gradient is _median_taps': the
+    taps times their equality mask over its count, so that the cotangent is
+    split equally among exact ties (kthvalue's own backward sends it all to
+    one of them).  The value stays kthvalue's, bit for bit, as the kernel's;
+    _median_taps' own sum can round a tie by an ulp (ROADMAP, faults).
+
+    On the capture-safe route (_vjp.bounds_static, or `static`) the radius
+    is not read on the host: all MAX_R radii are computed and torch.where
+    takes the one of index clip(floor(7 p), 0, 6), on the device, as
+    _median_jnp's lax.switch does.  The one taken is the host-read route's
+    value and tie-split gradient bit for bit; the others get a zero
+    cotangent."""
+    radius = size01_to_radius(params[0, 0])
+    if not _vjp.bounds_static(x, static):
+        return clip(_median_fixed(x, int(radius)), 0.0, 1.0)
+    out = _median_fixed(x, 1)
+    for r in range(2, MAX_R + 1):
+        out = torch.where(radius == r, _median_fixed(x, r), out)
     return clip(out, 0.0, 1.0)
 
 

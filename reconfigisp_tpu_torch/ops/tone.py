@@ -15,9 +15,18 @@ from reconfigisp_tpu_torch.ops.nn import clip
 LUM_BGR = (0.114, 0.587, 0.299)
 
 
+_LUM = {}   # (device, dtype) -> LUM_BGR there
+
+
 def _luminance(x: torch.Tensor) -> torch.Tensor:
-    lum = torch.tensor(LUM_BGR, dtype=x.dtype, device=x.device)
-    return (x @ lum)[..., None]  # (N, H, W, 1)
+    # made once per device, so that a captured CUDA graph copies nothing
+    # from the host; a normal tensor even under inference mode, so that
+    # autograd can save it later
+    key = (x.device, x.dtype)
+    if key not in _LUM:
+        with torch.inference_mode(False):
+            _LUM[key] = torch.tensor(LUM_BGR, dtype=x.dtype, device=x.device)
+    return (x @ _LUM[key])[..., None]  # (N, H, W, 1)
 
 
 def _scale_by_luminance(x, l_in, l_out):

@@ -28,9 +28,14 @@ square root.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import time
 from typing import Callable
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from reconfigisp_tpu_torch.ops.kernels import _vjp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +107,11 @@ def make_darts_step(forward: Callable, criterion: Callable,
     training pass come back detached in logs["_mids"].  criterion(pred,
     target, latency=..., [glb_flag=...]) -> scalar.  The batch holds "img",
     "gt", "val_img", "val_gt" and optionally "glb_flag", "val_glb_flag".
-    lr_scale multiplies both learning rates (the schedule).  The logs
-    "loss", "val_loss", "eps" and "dtheta_norm" are 0-d tensors."""
+    lr_scale multiplies both learning rates (the schedule): a number, or a
+    0-d tensor, which a captured step reads on the device; either way the
+    rates are float32 products, as in the JAX step, whose jit takes the
+    scale as a float32 array.  The logs "loss", "val_loss", "eps" and
+    "dtheta_norm" are 0-d tensors."""
 
     def loss_on(theta, alphas, omega, img, gt, flag=None):
         out = forward(theta, alphas, omega, img)
@@ -118,6 +126,8 @@ def make_darts_step(forward: Callable, criterion: Callable,
         img, gt = batch["img"], batch["gt"]
         val_img, val_gt = batch["val_img"], batch["val_gt"]
         flag, val_flag = batch.get("glb_flag"), batch.get("val_glb_flag")
+        lr_scale = torch.as_tensor(lr_scale, dtype=torch.float32,
+                                   device=img.device)
         lr_theta = cfg.lr_theta * lr_scale
         lr_alpha = cfg.lr_alpha * lr_scale
         alphas = _map(torch.detach, alphas)
@@ -199,3 +209,183 @@ def make_darts_step(forward: Callable, criterion: Callable,
         return new_vars, new_opt, logs
 
     return step
+
+
+# ------------------------------------------------------------ K-step dispatch
+
+def make_darts_multi_step(step: Callable) -> Callable:
+    """K steps per dispatch: the counterpart of the JAX package's
+    make_darts_multi_step (reconfigisp_tpu/search/darts.py:200-236), which
+    scans them into one XLA program.
+
+    multi(variables, opt_state, batches, lr_scales) -> (variables,
+    opt_state, logs): the batch's tensors stacked on a leading (K,) axis,
+    the lr scales a (K,) vector; the variables and optimiser state after K
+    steps, the last step's scalar logs, and the `_mids` of every step
+    flattened to (K n_mids, ...), so that the ft trainer's replay memory
+    sees every step, as at one step a dispatch.  The results are those of
+    K calls of `step` in order.
+
+    On the CPU it calls `step` K times in order.  On CUDA the first call
+    captures one step as a CUDA graph (_StepGraph) over static tensors,
+    the state tensors it is given among them, and each call replays that
+    graph K times: before each replay slot k of the batches and lr k are
+    copied into the graph's inputs on the device, and the replay writes
+    the new variables and state into the old ones.  So the state tensors
+    are updated in place, and every call takes and returns the dicts of
+    the first (other state is written into their tensors with copy_, as
+    the trainers' resume does).  The graph holds one step,
+    not K: a second-order step is some 10^5 kernel nodes or more, and a
+    graph of K steps would take K times as long to capture and instantiate,
+    and K times the memory, to save K - 1 launches of a graph.  `multi.graph`
+    is the captured graph's runner, None before the first call on CUDA."""
+
+    def multi(variables, opt_state, batches, lr_scales):
+        device = _leaves(variables["alphas"])[0].device
+        if device.type == "cuda":
+            if multi.graph is None:
+                first = {k: v[0] for k, v in batches.items()}
+                multi.graph = _StepGraph(step, variables, opt_state, first)
+            return multi.graph(variables, opt_state, batches, lr_scales)
+        mids = []
+        for i in range(len(lr_scales)):
+            variables, opt_state, logs = step(
+                variables, opt_state, {k: v[i] for k, v in batches.items()},
+                lr_scales[i])
+            if "_mids" in logs:
+                mids.append(logs.pop("_mids"))
+        if mids:
+            logs["_mids"] = torch.cat(mids)
+        return variables, opt_state, logs
+
+    multi.graph = None
+    return multi
+
+
+class _LastOp(TorchDispatchMode):
+    """Keeps the name of the last ATen op dispatched."""
+
+    name = "no op"
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.name = str(func)
+        return func(*args, **(kwargs or {}))
+
+
+def _failing_op(step, args) -> str:
+    """The ATen op at which `step(*args)` raises with synchronising CUDA
+    calls made errors, outside any capture: the op a capture of it cannot
+    take."""
+    mode = _LastOp()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with mode, _vjp.static_bounds(), _vjp.tally_launches():
+            step(*args)
+    except Exception:  # noqa: BLE001 - any error names the op it came from
+        return mode.name
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return ("no op of the step (each runs outside a capture; another "
+            "thread's CUDA call may have ended it)")
+
+
+class _StepGraph:
+    """One DARTS step captured as a CUDA graph, and its replays.
+
+    The graph's inputs are the state tensors it was built over (theta, the
+    alphas, omega's modules and the optimiser state, which the step reads
+    and, at the end of the captured region, overwrites with copy_), a
+    buffer per batch tensor and the lr scale as a 0-d float32 tensor.
+    Before the capture the step runs once on a side stream, as PyTorch's
+    notes on CUDA graphs require: autograd's device thread, cuDNN's and
+    cuBLAS's handles and workspaces and the kernels' first build and load
+    then happen outside it.  The warm-up and the capture run the plain
+    forms' capture-safe route (_vjp.static_bounds) and tally the kernels'
+    launches apart (_vjp.tally_launches): the warm-up's in
+    `warmup_launches`, as it is no step of the run; the capture's in
+    `launches`, which each replay adds to the kernels' counts.  A capture
+    that fails raises, naming the op; nothing falls back to eager steps.
+    `capture_s` is the capture's wall time, `record_s` the part of it that
+    ran the step's Python (the rest instantiates the graph), and
+    `pool_bytes` the device memory the capture allocated at its peak."""
+
+    def __init__(self, step, variables, opt_state, batch):
+        self.step = step
+        self.variables, self.opt_state = variables, opt_state
+        self.device = _leaves(variables["alphas"])[0].device
+        self.batch = {k: v.to(self.device).clone() for k, v in batch.items()}
+        self.lr = torch.ones((), dtype=torch.float32, device=self.device)
+        args = (variables, opt_state, self.batch, self.lr)
+
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side), _vjp.static_bounds(), \
+                _vjp.tally_launches() as warm:
+            step(*args)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.warmup_launches = dict(warm)
+
+        torch.cuda.synchronize(self.device)
+        before = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        # A finalizer that frees another graph (cudaGraphExecDestroy) in the
+        # middle of the capture would end it: collect first, and let no
+        # collection run until the capture ends.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with _vjp.static_bounds(), _vjp.tally_launches() as tally:
+                with torch.cuda.graph(self.graph):
+                    new_vars, new_opt, logs = step(*args)
+                    for key in ("theta", "alphas"):
+                        _map(lambda s, t: s.copy_(t), variables[key],
+                             new_vars[key])
+                    _map(lambda s, t: s.copy_(t), opt_state, new_opt)
+                    self.record_s = time.perf_counter() - t0
+        except Exception as err:
+            raise RuntimeError(
+                "CUDA graph capture of the DARTS step failed at "
+                f"{_failing_op(step, args)}: {err}") from err
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.max_memory_allocated(self.device) - before
+        self.launches = dict(tally)
+        self.mids = logs.pop("_mids", None)
+        self.logs = logs
+
+    def __call__(self, variables, opt_state, batches, lr_scales):
+        if variables is not self.variables or opt_state is not self.opt_state:
+            raise ValueError("the step's graph runs over the state dicts it "
+                             "was captured with: write new state into their "
+                             "tensors (copy_)")
+        staged = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                  for k, v in batches.items()}
+        for k, v in staged.items():
+            if v.shape[1:] != self.batch[k].shape:
+                raise ValueError(
+                    f"the step's graph takes {k} of shape "
+                    f"{tuple(self.batch[k].shape)}, got {tuple(v.shape[1:])}")
+        lrs = torch.as_tensor(lr_scales, dtype=torch.float32).to(
+            self.device, non_blocking=True)
+        k_steps = lrs.shape[0]
+        mids = (None if self.mids is None else self.mids.new_empty(
+            (k_steps * self.mids.shape[0],) + self.mids.shape[1:]))
+        for i in range(k_steps):
+            for k, buf in self.batch.items():
+                buf.copy_(staged[k][i])
+            self.lr.copy_(lrs[i])
+            self.graph.replay()
+            _vjp.count_launches(self.launches)
+            if mids is not None:
+                n = self.mids.shape[0]
+                mids[i * n:(i + 1) * n].copy_(self.mids)
+        logs = {k: v.clone() for k, v in self.logs.items()}
+        if mids is not None:
+            logs["_mids"] = mids
+        return self.variables, self.opt_state, logs

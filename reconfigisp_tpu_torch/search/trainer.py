@@ -10,12 +10,15 @@ Counterpart of reconfigisp_tpu/search/trainer.py:
                  isp_yolo train under a frozen YOLOv3's detection loss
 IspTrainer's Pipeline module holds its state and torch.optim.Adam updates it
 in place; the search trainers hold the supernet's variables and the DARTS
-state as dicts that search/darts.py's step replaces each step.  Checkpoints
+state as dicts, which search/darts.py's step replaces each step on the CPU
+and its CUDA graph updates in place on the card.  Checkpoints
 hold the JAX layout (convert.state_to_jax, convert.adam_state_to_jax,
 convert.supernet_variables_to_jax, convert.darts_opt_state_to_jax), so the
-JAX package resumes what these trainers save, and the reverse.  Not ported
-yet (ROADMAP.md): data-parallel training (the JAX trainers' `mesh`, DDP) and
-the search's K-step dispatch (`steps_per_dispatch`, `flush`).
+JAX package resumes what these trainers save, and the reverse.  The search
+trainers dispatch `steps_per_dispatch` steps at a time, as the JAX package's
+do (search/darts.make_darts_multi_step: on CUDA each step a replay of one
+captured CUDA graph).  Not ported yet (ROADMAP.md): data-parallel training
+(the JAX trainers' `mesh`, DDP).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ import torch
 from reconfigisp_tpu_torch import convert
 from reconfigisp_tpu_torch.pipeline import Pipeline, resolve_device
 from reconfigisp_tpu_torch.search.darts import (
-    DartsConfig, init_darts_opt_state, make_darts_step)
+    DartsConfig, _map, init_darts_opt_state, make_darts_multi_step,
+    make_darts_step)
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils import checkpoint, losses
 from reconfigisp_tpu_torch.utils.logging_utils import (
@@ -171,13 +175,22 @@ class IspTrainer:
 
 
 class DartsTrainer:
-    """Bilevel search (reference DartsModel + train.py loop): one DARTS step
-    per search_step, of order train_opt["darts_order"] (2 by default).
+    """Bilevel search (reference DartsModel + train.py loop): DARTS steps of
+    order train_opt["darts_order"] (2 by default), `steps_per_dispatch` (K,
+    1 by default) at a time.
 
-    The supernet's variables start from supernet.init(generator) and live on
-    its device.  Batches are dicts of tensors or numpy arrays with "noisy"
+    search_step buffers its batch and lr scale, and at every K-th call
+    dispatches the K buffered steps (search/darts.make_darts_multi_step:
+    on the CPU K eager steps, on CUDA K replays of the step's CUDA graph,
+    K = 1 included); until then it returns the last dispatched logs, as the
+    JAX trainer does.  flush() runs what is buffered; architecture(),
+    save(), load_pretrained() and DartsFtTrainer.finetune_proxies() flush
+    first.  The supernet's variables start from supernet.init(generator)
+    and live on its device; on CUDA they are the graph's static tensors,
+    which a dispatch updates in place, and resume and load_pretrained write
+    into them.  Batches are dicts of tensors or numpy arrays with "noisy"
     mosaics, the target under `target_key` and optionally "glb_flag"; they
-    are moved to that device."""
+    are moved to that device, K at a time."""
 
     def __init__(self, supernet: SuperNet, train_opt: dict, *,
                  generator: Optional[torch.Generator] = None,
@@ -208,50 +221,89 @@ class DartsTrainer:
                     img, return_aux=True)
                 return y, aux["latency"]
         self._step = make_darts_step(forward, self.criterion, self.cfg)
+        self.k = max(1, int(train_opt.get("steps_per_dispatch", 1)))
+        self._multi = make_darts_multi_step(self._step)
+        self._buf: list = []
         self._last_logs = {"loss": float("nan"), "val_loss": float("nan")}
 
     def _tensor(self, v) -> torch.Tensor:
         return _tensor(v, self.net.device)
 
+    @property
+    def graph(self):
+        """The runner of the step's CUDA graph (search/darts._StepGraph),
+        None on the CPU and before the first dispatch."""
+        return self._multi.graph
+
     def search_step(self, train_batch: dict, val_batch: dict) -> dict:
-        """One step at lr times the schedule's scale of its 1-based index ->
-        {"loss", "val_loss", "eps", "dtheta_norm"} as floats."""
+        """One step at lr times the schedule's scale of its 1-based index,
+        buffered until K are -> {"loss", "val_loss", "eps", "dtheta_norm"}
+        of the last dispatched step, as floats."""
         self.step_idx += 1
         lr_scale = self.schedule(self.step_idx)
+        self._buf.append((self.step_batch(train_batch, val_batch),
+                          float(lr_scale)))
+        if len(self._buf) < self.k:
+            # buffered: the logs and variables move at the next dispatch
+            return dict(self._last_logs)
+        return self._dispatch()
+
+    def step_batch(self, train_batch: dict, val_batch: dict) -> dict:
+        """The step's batch (search/darts.make_darts_step) of a training
+        and a validation batch, as they were given."""
         tk = self.target_key
         batch = {"img": train_batch["noisy"], "gt": train_batch[tk],
                  "val_img": val_batch["noisy"], "val_gt": val_batch[tk]}
         if "glb_flag" in train_batch:
             batch["glb_flag"] = train_batch["glb_flag"]
             batch["val_glb_flag"] = val_batch["glb_flag"]
-        batch = {k: self._tensor(v) for k, v in batch.items()}
-        self.variables, self.opt_state, logs = self._step(
-            self.variables, self.opt_state, batch, lr_scale)
-        # tensors beside the scalars (the ft trainer's intermediates) ride in
-        # underscore-keyed entries
+        return batch
+
+    def _dispatch(self) -> dict:
+        """Run the buffered steps in one dispatch."""
+        buf, self._buf = self._buf, []
+        stacked = {}
+        for key in buf[0][0]:
+            values = [b[key] for b, _ in buf]
+            stacked[key] = self._tensor(
+                torch.stack(values) if all(isinstance(v, torch.Tensor)
+                                           for v in values)
+                else np.stack([np.asarray(v) for v in values]))
+        self.variables, self.opt_state, logs = self._multi(
+            self.variables, self.opt_state, stacked, [lr for _, lr in buf])
+        # tensors beside the scalars (the ft trainer's intermediates, of
+        # every step of the dispatch) ride in underscore-keyed entries
         self._last_aux = {k: logs.pop(k) for k in list(logs)
                           if k.startswith("_")}
         self._last_logs = {k: float(v) for k, v in logs.items()}
         return dict(self._last_logs)
 
+    def flush(self) -> None:
+        """Run the buffered steps, one replay each on CUDA, so that the
+        variables hold every search_step so far."""
+        if self._buf:
+            self._dispatch()
+
     @torch.no_grad()
     def pruned_paths(self, img) -> np.ndarray:
-        """Pruned paths per slot at the current alphas."""
+        """Pruned paths per slot at the current (dispatched) alphas."""
         _, aux = self.net(self.variables, self._tensor(img), return_aux=True)
         return aux["pruned"].cpu().numpy()
 
     def architecture(self) -> str:
+        self.flush()
         return self.net.argmax_architecture(self.variables)
 
     @property
     def last_logs(self) -> dict:
-        """The latest step's metrics; restored on resume, so a run that
-        resumes complete reports its checkpointed loss."""
+        """The latest dispatched step's metrics; restored on resume, so a
+        run that resumes complete reports its checkpointed loss."""
         return dict(self._last_logs)
 
     def save(self, models_dir: str, state_dir: str, epoch: int):
         """<models_dir>/<step>_G.ckpt and <state_dir>/<step>.state in the
-        JAX package's layout."""
+        JAX package's layout, after a flush."""
+        self.flush()
         variables = convert.supernet_variables_to_jax(self.variables)
         checkpoint.save_network(models_dir, "G", self.step_idx, variables)
         checkpoint.save_training_state(
@@ -260,14 +312,27 @@ class DartsTrainer:
             opt_state=convert.darts_opt_state_to_jax(self.opt_state),
             extra={"last_logs": self._last_logs})
 
+    @torch.no_grad()
+    def _assign(self, variables: dict, opt_state: dict) -> None:
+        """Write variables and optimiser state into the trainer's own
+        tensors and modules (on CUDA the step graph's inputs)."""
+        for key in ("theta", "alphas"):
+            _map(lambda t, v: t.copy_(v), self.variables[key],
+                 variables[key])
+        _map(lambda t, v: t.copy_(v), self.opt_state, opt_state)
+        for name, module in self.variables["omega"].items():
+            module.load_state_dict(variables["omega"][name].state_dict())
+
     def resume(self, state_path: str) -> int:
-        """Load a training state (this trainer's or the JAX package's) ->
-        its epoch."""
+        """Load a training state (this trainer's or the JAX package's) into
+        the trainer's tensors -> its epoch.  Steps still buffered are
+        dropped: the state replaces the run they belong to."""
         st = checkpoint.load_training_state(state_path)
-        self.variables = convert.supernet_variables_from_jax(
-            st["variables"], self.net)
-        self.opt_state = convert.darts_opt_state_from_jax(
-            st["opt_state"], self.net.device)
+        self._buf = []
+        self._assign(
+            convert.supernet_variables_from_jax(st["variables"], self.net),
+            convert.darts_opt_state_from_jax(st["opt_state"],
+                                             self.net.device))
         self.step_idx = int(st["step"])
         if (st.get("extra") or {}).get("last_logs"):
             self._last_logs = {k: float(v) for k, v in
@@ -276,8 +341,9 @@ class DartsTrainer:
 
     def load_pretrained(self, weights_by_name: dict) -> list:
         """Install pretrained weights (JAX pytrees by op name, as
-        utils/checkpoint.load_network reads the module bank) into omega ->
-        the installed op names."""
+        utils/checkpoint.load_network reads the module bank) into omega's
+        modules, after a flush -> the installed op names."""
+        self.flush()
         installed = []
         for name, tree in weights_by_name.items():
             if name in self.variables["omega"]:
@@ -331,13 +397,13 @@ class DartsFtTrainer(DartsTrainer):
 
     def resume(self, state_path: str) -> int:
         epoch = super().resume(state_path)
-        self._make_ft_optimizers()  # omega's modules are new
+        self._make_ft_optimizers()  # Adam starts anew on the loaded omega
         return epoch
 
     def record_intermediates(self, train_batch: Optional[dict] = None):
-        """Push the sRGB intermediates of the last search_step into the FIFO
-        memory, consuming them; before any step, those of a forward on
-        `train_batch`."""
+        """Push the sRGB intermediates of the last dispatch's steps into the
+        FIFO memory, in step order, consuming them (a buffered step has
+        none yet); before any step, those of a forward on `train_batch`."""
         mids = self._last_aux.pop("_mids", None)
         if mids is not None:
             self.ft_data.extend(mids.unbind(0))
@@ -366,7 +432,12 @@ class DartsFtTrainer(DartsTrainer):
         """ft_steps Adam steps per ft op, each on a memory entry and params
         drawn from the trainer's numpy generator in the JAX package's order
         (integers(len), then random((1, P)), per step, per op) ->
-        {"ft_<name>": the last step's loss}."""
+        {"ft_<name>": the last step's loss}.  Buffered search steps run
+        first, so that tuning comes at the step the cadence names and every
+        step before it searched with the untuned omega, as in the JAX
+        package; the modules are tuned in place, so the next replay of the
+        step's graph reads the tuned weights."""
+        self.flush()
         self.record_intermediates()
         if not self.ft_data or self.ft_steps < 1:
             return {}

@@ -149,7 +149,10 @@ class SuperNet:
                     for i in bank])
                 outs = _run(lambda x_, p_: cnn.apply_srcnn_res_bank(
                     nets, x_, p_), self.remat, x, pstack)
-                y = y + torch.einsum("k,knhwc->nhwc", post[bank], outs)
+                # stacked, not indexed by the list, which would copy the
+                # list to the device: no host copy in a captured step
+                weights_k = torch.stack([post[i] for i in bank])
+                y = y + torch.einsum("k,knhwc->nhwc", weights_k, outs)
             pruned.append((~keep).sum())
             mids.append(y)
             x = y

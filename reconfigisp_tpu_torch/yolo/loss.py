@@ -25,12 +25,21 @@ import numpy as np
 import torch
 
 
+_ANCHORS = {}   # (anchors, stride, device) -> _anchors_per_cell
+
+
 def _anchors_per_cell(anchors, stride: float, device) -> torch.Tensor:
     """Anchors in grid units, f32 divided as JAX divides them (by the f32
     of the python stride; a CUDA division by a scalar would multiply by its
-    reciprocal)."""
-    a = np.asarray(anchors, np.float32) / np.float32(stride)
-    return torch.from_numpy(a).to(device)
+    reciprocal).  Made once per device, so that a captured CUDA graph
+    copies nothing from the host, and never as an inference tensor, which
+    autograd could not save."""
+    key = (tuple(map(tuple, anchors)), stride, torch.device(device))
+    if key not in _ANCHORS:
+        a = np.asarray(anchors, np.float32) / np.float32(stride)
+        with torch.inference_mode(False):
+            _ANCHORS[key] = torch.from_numpy(a).to(device)
+    return _ANCHORS[key]
 
 
 def decode_head(head: torch.Tensor, anchors: Sequence[Tuple[float, float]],

@@ -4,7 +4,9 @@ training through them, the supernet and a second-order DARTS step through them,
 the train and test CLIs on the card, the YOLOv3 evaluator's forward and
 criterion gradient on the card against the CPU, and the kernels as custom
 ops: opcheck, their gradients, and serving artifacts exported on the card
-and on the CPU.
+and on the CPU; the search step captured as a CUDA graph against the eager
+step, K-step dispatch, launch counts under replay, and a host read inside a
+capture raising.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a card.  The file
 imports no JAX, so on a machine without JAX it runs alone:
@@ -30,7 +32,7 @@ from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
-from reconfigisp_tpu_torch.search import IspTrainer
+from reconfigisp_tpu_torch.search import DartsTrainer, IspTrainer
 from reconfigisp_tpu_torch.search.darts import (
     DartsConfig, init_darts_opt_state, make_darts_step)
 from reconfigisp_tpu_torch.supernet import SuperNet
@@ -606,3 +608,173 @@ def test_artifact_exported_on_cpu_runs_on_cuda(no_tf32, arch):
                         for k in launches}
     want = deploy.make_serving_fn(_bank_pipeline(arch, cuda), **tiling)(x)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+# ------------------------------------------------------------- CUDA graphs
+
+# SID_search's slots (3 of the first 9 sRGB ops: the three kernels) at its
+# crop geometry; a MultiStepLR milestone at step 2 moves the lr within a run
+_GRAPH_OPT = {"lr_G": 1e-2, "momentum_G": 0.9, "lr_meta": 1e-2, "beta1": 0.9,
+              "beta2": 0.99, "pixel_criterion": "l2",
+              "lr_scheme": "MultiStepLR", "lr_steps": [2], "lr_gamma": 0.5}
+
+
+def _graph_trainer(device, k=1):
+    return DartsTrainer(SuperNet(3, 0.2, srgb_count=9, device=device),
+                        dict(_GRAPH_OPT, steps_per_dispatch=k))
+
+
+def _graph_pairs(n):
+    rng = np.random.default_rng(35)
+    mk = lambda c: rng.uniform(0.05, 0.95, (4, 48, 48, c)).astype(np.float32)
+    return [({"noisy": mk(1), "gt": mk(3)}, {"noisy": mk(1), "gt": mk(3)})
+            for _ in range(n)]
+
+
+def _assert_trainers_agree(got, want):
+    """Alphas within 1e-5, theta within 1e-6 and the optimiser state within
+    1e-3 of its largest value (chip_smoke.py's SEARCH_*_TOL and
+    DISPATCH_STATE_RTOL, and their reasons); the same kernels on the same
+    inputs, so 0 is expected up to rounding."""
+    for slot, a in want.variables["alphas"].items():
+        assert float((got.variables["alphas"][slot] - a).abs().max()) <= 1e-5
+        for op, t in want.variables["theta"][slot].items():
+            assert float((got.variables["theta"][slot][op] - t).abs().max()
+                         ) <= 1e-6, (slot, op)
+    for key in ("momentum", "adam_m", "adam_v"):
+        flat = lambda d: [v for x in d.values() for v in (
+            flat(x) if isinstance(x, dict) else [x])]
+        for a, b in zip(flat(got.opt_state[key]), flat(want.opt_state[key])):
+            assert float((a - b).abs().max()) <= 1e-3 * max(
+                float(b.abs().max()), 1e-30), key
+    assert int(got.opt_state["adam_t"]) == int(want.opt_state["adam_t"])
+
+
+def _eager(trainer, pairs):
+    """The trainer's step function run eagerly as search_step schedules
+    it -> the logs as floats."""
+    logs = []
+    for tb, vb in pairs:
+        trainer.step_idx += 1
+        batch = {k: trainer._tensor(v)
+                 for k, v in trainer.step_batch(tb, vb).items()}
+        trainer.variables, trainer.opt_state, out = trainer._step(
+            trainer.variables, trainer.opt_state, batch,
+            trainer.schedule(trainer.step_idx))
+        logs.append({k: float(v) for k, v in out.items()})
+    return logs
+
+
+def test_captured_step_equals_eager_step(cuda):
+    """3 steps as replays of the captured graph against the eager step
+    from the same start, TF32 off: each step's losses within 1e-5
+    relative, and the variables and state (_assert_trainers_agree)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pairs = _graph_pairs(3)
+        eager, captured = _graph_trainer(cuda), _graph_trainer(cuda)
+        want = _eager(eager, pairs)
+        got = [captured.search_step(tb, vb) for tb, vb in pairs]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert captured.graph is not None and eager.graph is None
+    for a, b in zip(got, want):
+        for k in ("loss", "val_loss"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), (k, a, b)
+    _assert_trainers_agree(captured, eager)
+
+
+def test_k3_trainer_equals_k1_trainer(cuda):
+    """steps_per_dispatch 3 over 6 steps and 1 step of a flush against
+    K = 1 over the same 7: the K-step trainer's state after each dispatch
+    and its logs are K = 1's; every step launched each kernel 15 times (3
+    slots x 5 passes), counted through the replays."""
+    pairs = _graph_pairs(7)
+    runs = {}
+    for k in (1, 3):
+        trainer = _graph_trainer(cuda, k)
+        kb.launches = km.launches = kf.launches = 0
+        logs = [trainer.search_step(tb, vb) for tb, vb in pairs]
+        trainer.flush()
+        torch.cuda.synchronize()
+        runs[k] = (trainer, logs, (kb.launches, km.launches, kf.launches))
+    (one, logs1, count1), (three, logs3, count3) = runs[1], runs[3]
+    assert count1 == count3 == (15 * 7,) * 3
+    assert logs3[:2] == [logs3[0]] * 2 and logs3[3:5] == [logs3[2]] * 2
+    for a, b in ((logs3[2], logs1[2]), (logs3[5], logs1[5]),
+                 (three.last_logs, one.last_logs)):
+        for k in ("loss", "val_loss"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(b[k]), (k, a, b)
+    _assert_trainers_agree(three, one)
+
+
+def test_launch_counts_under_replay(cuda):
+    """The capture's launches are a replay's (15 a kernel), added to the
+    kernels' counts on each replay; the warm-up step's are kept apart, so
+    the counts hold 15 a step from the first step on."""
+    trainer = _graph_trainer(cuda)
+    pairs = _graph_pairs(2)
+    kb.launches = km.launches = kf.launches = 0
+    trainer.search_step(*pairs[0])
+    assert (kb.launches, km.launches, kf.launches) == (15, 15, 15)
+    trainer.search_step(*pairs[1])
+    assert (kb.launches, km.launches, kf.launches) == (30, 30, 30)
+    want = {"bilateral": 15, "median": 15, "fastnlm": 15}
+    assert trainer.graph.launches == trainer.graph.warmup_launches == want
+
+
+@pytest.mark.parametrize("name", ["bilateral", "median", "fastnlm"])
+def test_capture_safe_routes_equal_host_routes_on_cuda(cuda, name):
+    """Each plain form's capture-safe route against its host-read route on
+    the card, value and both gradients bit for bit: radii 1-7 (fast NLM:
+    the block radius, with per-image search radii 1, 4 and 7); the
+    capture-safe fast NLM divides by its block size as torch divides a CUDA
+    tensor by a number."""
+    plain = _PLAIN[name]
+    for r in range(1, 8):
+        x, p = _case((3, 48, 40, 3), _grad_rows(name, 3), cuda)
+        if name == "median":
+            p[0, 0] = (r - 0.5) / 7.0
+        elif name == "fastnlm":
+            p[0, 0] = (r - 0.5) / 7.0
+            p[:, 1] = torch.tensor([0.5, 3.5, 6.5], device=cuda) / 7.0
+        else:
+            p[:, 0] = torch.tensor([r, max(1, r - 2), 1.0],
+                                   device=cuda).sub(0.5) / 7.0
+        g = torch.rand(x.shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(r))
+        got = []
+        for static in (False, True):
+            xs, ps = x.clone().requires_grad_(), p.clone().requires_grad_()
+            y = plain(xs, ps, static=static)
+            got.append((y.detach(),) + torch.autograd.grad(
+                y, (xs, ps), g, allow_unused=True))
+        for a, b in zip(*got):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b), (name, r)
+
+
+def test_host_read_inside_capture_raises(cuda):
+    """Nothing falls back: a plain form's host-read route inside a capture
+    raises, and a step that reads a tensor on the host fails its capture,
+    naming the op, instead of running eagerly."""
+    x, p = _case((2, 48, 48, 3), [[0.3], [0.3]], cuda)
+    km.median_plain(x, p, static=True)   # warm: the capture-safe route
+    with pytest.raises(RuntimeError):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            km.median_plain(x, p, static=False)
+    torch.cuda.synchronize()
+
+    net = SuperNet(1, 0.2, srgb_count=9, device=cuda)
+
+    def forward(theta, alphas, omega, img):
+        y, aux = net({"theta": theta, "alphas": alphas, "omega": omega},
+                     img * float(img.mean() > 0), return_aux=True)
+        return y, aux["latency"]
+
+    trainer = DartsTrainer(net, _GRAPH_OPT, forward=forward)
+    with pytest.raises(RuntimeError, match="_local_scalar_dense"):
+        trainer.search_step(*_graph_pairs(1)[0])
+    torch.cuda.synchronize()

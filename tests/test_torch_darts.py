@@ -295,6 +295,7 @@ def trainers(tmp_path_factory):
            "installed": (sorted(jt.load_pretrained(bank)),
                          sorted(pt.load_pretrained(bank))),
            "jax_logs": [], "port_logs": [], "jax_vars": [], "port_vars": []}
+    out["jax_start"] = (jt.variables, jt.opt_state)   # immutable arrays
     for i, (tb, vb) in enumerate(_trainer_batches()):
         with jax.default_matmul_precision("highest"):
             out["jax_logs"].append(jt.search_step(tb, vb))
@@ -327,6 +328,44 @@ def test_trainer_matches_jax(trainers):
                       "omega": {}}, want)
     assert trainers["port"].last_logs == trainers["port_logs"][-1]
     assert trainers["port"].architecture() == trainers["jax"].architecture()
+
+
+def test_k_step_dispatch_matches_the_jax_single_step_trainer(trainers):
+    """A port trainer with steps_per_dispatch 4 fed 5 steps, then flushed,
+    against the JAX trainer's own jitted single steps on the same stream
+    from the same start (its state put back afterwards): steps 1-3 return
+    the initial logs, step 4 dispatches and returns its own, step 5 is
+    buffered until the flush; the losses, the final variables and the
+    decoded architecture are JAX's at the tolerances above."""
+    jt = trainers["jax"]
+    saved = (jt.variables, jt.opt_state, jt.step_idx, jt._last_logs)
+    pairs = [(_batch(60 + i, ("noisy", "gt")), _batch(65 + i, ("noisy", "gt")))
+             for i in range(5)]
+    jt.variables, jt.opt_state = trainers["jax_start"]
+    jt.step_idx = 0
+    try:
+        with jax.default_matmul_precision("highest"):
+            jlogs = [jt.search_step(tb, vb) for tb, vb in pairs]
+        jvars = _to_numpy(jt.variables)
+        jarch = jt.architecture()
+    finally:
+        jt.variables, jt.opt_state, jt.step_idx, jt._last_logs = saved
+
+    net = trainers["net"]
+    pt = DartsTrainer(net, dict(TRAIN_OPT, steps_per_dispatch=4))
+    pt.variables = convert.supernet_variables_from_jax(
+        _to_numpy(trainers["jax_start"][0]), net)
+    logs = [pt.search_step(tb, vb) for tb, vb in pairs]
+    assert all(np.isnan(lg["loss"]) for lg in logs[:3])
+    assert logs[4] == logs[3] and len(pt._buf) == 1
+    for k in ("loss", "val_loss"):
+        assert logs[3][k] == pytest.approx(jlogs[3][k], rel=LOSS_RTOL), k
+    pt.flush()
+    assert pt.step_idx == 5 and not pt._buf
+    for k in ("loss", "val_loss"):
+        assert pt.last_logs[k] == pytest.approx(jlogs[4][k], rel=LOSS_RTOL)
+    _assert_vars(pt.variables, jvars)
+    assert pt.architecture() == jarch
 
 
 def test_pruned_paths_match_jax(trainers):

@@ -115,7 +115,8 @@ def ft_runs(tmp_path_factory):
         _to_numpy(jt.variables), net)
     pt._make_ft_optimizers()   # over the carried-in modules
     out = {"jax": jt, "port": pt, "root": root, "start": _to_numpy(
-        jt.variables["omega"]), "logs": []}
+        jt.variables["omega"]), "start_vars": _to_numpy(jt.variables),
+        "logs": []}
     with jax.default_matmul_precision("highest"):
         for tb, vb in _batches():
             out["logs"].append((pt.search_step(tb, vb),
@@ -145,6 +146,32 @@ def test_memory_is_a_fifo_of_the_training_pass(ft_runs):
     the oldest dropped; the last entries are the last step's, as JAX's."""
     assert ft_runs["memory"] == (5, 5)
     pt, jt = ft_runs["port"], ft_runs["jax"]
+    for got, want in zip(pt.ft_data, jt.ft_data):
+        assert tuple(got.shape) == want.shape == (2, 32, 32, 3)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+def test_two_step_dispatch_memory_matches_jax_single_steps(ft_runs):
+    """steps_per_dispatch 2 over the same 3 batches from the same start,
+    each step recorded as run_training records it: a buffered step records
+    nothing, a dispatch both its steps' intermediates in step order, and
+    after a flush the FIFO is the JAX K = 1 trainer's, in length and
+    contents (as tests/test_trainer.py holds JAX's K = 2 against K = 1)."""
+    net = SuperNet(1, 0.2, use_proxies=True, srgb_count=9, device="cpu")
+    pt = DartsFtTrainer(net, dict(TRAIN_OPT, steps_per_dispatch=2), FT)
+    pt.variables = convert.supernet_variables_from_jax(
+        ft_runs["start_vars"], net)
+    pt._make_ft_optimizers()
+    sizes = []
+    for tb, vb in _batches():
+        pt.search_step(tb, vb)
+        pt.record_intermediates(tb)
+        sizes.append(len(pt.ft_data))
+    assert sizes == [0, 4, 4]
+    pt.flush()
+    pt.record_intermediates()
+    jt = ft_runs["jax"]
+    assert len(pt.ft_data) == len(jt.ft_data) == 5
     for got, want in zip(pt.ft_data, jt.ft_data):
         assert tuple(got.shape) == want.shape == (2, 32, 32, 3)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
