@@ -102,7 +102,23 @@ Phases, one line each:
      planted_search_ft.yaml, K = 1 and K = 2, 2 steps (the replay memories
      equal eager's), finetune_proxies, 2 steps against eager steps from
      the same tuned state (the replays read the tuned proxies); (d)
-     darts_yolo at yolo_search.yaml's geometry, 3 steps.
+     darts_yolo at yolo_search.yaml's geometry, 3 steps;
+ 13. data parallelism over a process group (parallel/mesh.py, dp.py),
+     each run held against the serial one on the same global batches, the
+     kernels' launches counted on every rank: (a) dryrun_multichip over two
+     gloo ranks sharing the card (parallel/launch.spawn); over two gloo
+     ranks in one spawn, (b) configs/SID_search.yaml as written (dist:
+     true, a (2, 1) mesh from dist_mesh), 3 eager order-2 steps against
+     the serial trainer's captured steps, 15 launches a kernel a step on
+     each rank, (d) configs/SID_isp.yaml with slice 2, 3 IspTrainer steps,
+     and configs/yolo_search.yaml under phase 10's detector, 2 steps,
+     and (f) the flagship exported whole-frame with data_parallel=2 and
+     served by both ranks against make_serving_fn; (c) one NCCL rank,
+     make_mesh(1) passed explicitly so that the all-reduces run inside the
+     captured graph, at K = 1 and 2 against the trainer without a mesh;
+     (e) python -m torch.distributed.run --nproc-per-node 2 over the train
+     CLI on phase 9's records against 9c's serial run, the checkpoint
+     saved by rank 0 alone.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -124,6 +140,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -143,6 +160,9 @@ from reconfigisp_tpu_torch.ops.kernels import _build
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
+from reconfigisp_tpu_torch.parallel import launch
+from reconfigisp_tpu_torch.parallel import mesh as meshlib
+from reconfigisp_tpu_torch.parallel.dryrun import dryrun_multichip
 from reconfigisp_tpu_torch.parallel.tiling import feather_mask, tile_positions
 from reconfigisp_tpu_torch.ops import color, demosaic, denoise
 from reconfigisp_tpu_torch.ops.kernels import _vjp
@@ -150,7 +170,7 @@ from reconfigisp_tpu_torch.search import DartsFtTrainer, DartsTrainer, IspTraine
 from reconfigisp_tpu_torch.search.darts import _leaves
 from reconfigisp_tpu_torch.search.proxy_pretrain import pretrain_modules
 from reconfigisp_tpu_torch.search.trainer import (
-    build_yolo_evaluator, make_yolo_criterion)
+    build_yolo_evaluator, dist_mesh, make_yolo_criterion)
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils import latency
 from reconfigisp_tpu_torch.utils.checkpoint import load_network, save_network
@@ -1234,11 +1254,21 @@ EVAL_CHUNK = 4          # tiled_apply's default, which test.py takes
 CLI_ENV = {"NVIDIA_TF32_OVERRIDE": "0"}
 # python -c: run a module as `python -m` does, with the modules named in
 # its first argument made unimportable, then print its process's kernel
-# launches and peak device memory on a line of their own
+# launches, peak device memory, torchrun rank and the network checkpoints
+# it saved on a line of their own
 _CLI_RUNNER = r"""
-import json, runpy, sys
+import json, os, runpy, sys
 import torch
 from reconfigisp_tpu_torch.ops.kernels import bilateral, fastnlm, median
+from reconfigisp_tpu_torch.utils import checkpoint
+saves = []
+def _logged(save):
+    def wrapper(*args, **kw):
+        path = save(*args, **kw)
+        saves.append(path)
+        return path
+    return wrapper
+checkpoint.save_network = _logged(checkpoint.save_network)
 for name in filter(None, sys.argv[1].split(",")):
     sys.modules[name] = None
 module = sys.argv[2]
@@ -1251,7 +1281,8 @@ except SystemExit as exit_:
 peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
 print("CLI_COUNTS " + json.dumps({
     "launches": {"bilateral": bilateral.launches, "median": median.launches,
-                 "fastnlm": fastnlm.launches}, "peak_bytes": peak}),
+                 "fastnlm": fastnlm.launches}, "peak_bytes": peak,
+    "rank": os.environ.get("RANK"), "saves": saves}),
       flush=True)
 sys.exit(code)
 """
@@ -1577,29 +1608,29 @@ def phase_eval_cli(dev, tmp: Path, records: str, checkpoint: str) -> dict:
     return {"launches": total}
 
 
-def phase_entry_points(dev, bank, phase7_ms: float, phase8_ms: float):
+def phase_entry_points(dev, bank, phase7_ms: float, phase8_ms: float,
+                       tmp: Path):
     """Phase 9: the port's entry points on the card, each counted from 0
     in its own process: 9a proxy pretraining (in this process), 9b step 2,
-    9c step 1, 9d evaluation.  -> {"pretrain": launches, "entry": launches
-    of 9b-9d}."""
-    with tempfile.TemporaryDirectory() as root:
-        tmp = Path(root)
-        t0 = time.perf_counter()
-        pre = phase_pretrain(dev, bank, tmp)
-        records = make_sid_records(tmp / "records")
-        line("phase 9 records", pairs=RECORD_PAIRS, frame=RECORD_FRAME,
-             mib=f"{sum(f.stat().st_size for f in (tmp / 'records').iterdir()) / 2**20:.1f}",
-             seconds=f"{time.perf_counter() - t0:.2f}")
-        train = phase_train_cli(tmp, records, phase7_ms)
-        search = phase_search_cli(tmp, records, pre["checkpoint"], phase8_ms)
-        evals = phase_eval_cli(dev, tmp, records, train["checkpoint"])
-        entry = {name: train["launches"][name] + search["launches"][name]
-                 + evals["launches"][name] for name in KERNELS}
-        line("phase 9 launches", pretrain=json.dumps(pre["launches"])
-             .replace(" ", ""), train=json.dumps(train["launches"])
-             .replace(" ", ""), search=json.dumps(search["launches"])
-             .replace(" ", ""), eval=json.dumps(evals["launches"])
-             .replace(" ", ""), seconds=f"{time.perf_counter() - t0:.2f}")
+    9c step 1, 9d evaluation, under `tmp`, where the records and 9c's run
+    stay for phase 13e.  -> {"pretrain": launches, "entry": launches of
+    9b-9d}."""
+    t0 = time.perf_counter()
+    pre = phase_pretrain(dev, bank, tmp)
+    records = make_sid_records(tmp / "records")
+    line("phase 9 records", pairs=RECORD_PAIRS, frame=RECORD_FRAME,
+         mib=f"{sum(f.stat().st_size for f in (tmp / 'records').iterdir()) / 2**20:.1f}",
+         seconds=f"{time.perf_counter() - t0:.2f}")
+    train = phase_train_cli(tmp, records, phase7_ms)
+    search = phase_search_cli(tmp, records, pre["checkpoint"], phase8_ms)
+    evals = phase_eval_cli(dev, tmp, records, train["checkpoint"])
+    entry = {name: train["launches"][name] + search["launches"][name]
+             + evals["launches"][name] for name in KERNELS}
+    line("phase 9 launches", pretrain=json.dumps(pre["launches"])
+         .replace(" ", ""), train=json.dumps(train["launches"])
+         .replace(" ", ""), search=json.dumps(search["launches"])
+         .replace(" ", ""), eval=json.dumps(evals["launches"])
+         .replace(" ", ""), seconds=f"{time.perf_counter() - t0:.2f}")
     return {"pretrain": pre["launches"], "entry": entry}
 
 
@@ -2418,7 +2449,8 @@ def _state_diff(a, b) -> tuple:
 def _hold_dispatch(what: str, got, ref, got_logs: list, ref_logs: list,
                    loss_rtol=SEARCH_LOSS_RTOL, alpha_tol=SEARCH_ALPHA_TOL,
                    theta_tol=SEARCH_THETA_TOL,
-                   state_rtol=DISPATCH_STATE_RTOL) -> None:
+                   state_rtol=DISPATCH_STATE_RTOL,
+                   phase="phase 12 captured vs eager") -> None:
     """Raise unless trainer `got` is trainer `ref` within the tolerances,
     each of got_logs against the ref_logs step it pairs with; the DARTS
     state is printed, and held unless state_rtol is None."""
@@ -2426,7 +2458,7 @@ def _hold_dispatch(what: str, got, ref, got_logs: list, ref_logs: list,
                     for a, b in zip(got_logs, ref_logs)
                     for k in ("loss", "val_loss"))
     alpha, theta, state, adam_t = _state_diff(got, ref)
-    line("phase 12 captured vs eager", run=what,
+    line(phase, run=what,
          max_loss_rel_diff=f"{loss_diff:.3e}", loss_rtol=loss_rtol,
          max_alpha_diff=f"{alpha:.3e}", alpha_tol=alpha_tol,
          max_theta_diff=f"{theta:.3e}", theta_tol=f"{theta_tol:.3e}",
@@ -2435,7 +2467,7 @@ def _hold_dispatch(what: str, got, ref, got_logs: list, ref_logs: list,
     if not (loss_diff <= loss_rtol and alpha <= alpha_tol
             and theta <= theta_tol and adam_t == 0
             and (state_rtol is None or state <= state_rtol)):
-        raise AssertionError(f"{what}: the captured run parts from eager")
+        raise AssertionError(f"{what}: the runs part")
 
 
 def _profile_step(run) -> dict:
@@ -2476,7 +2508,8 @@ def phase_dispatch_sid(dev, bank) -> dict:
     """12a: SID_search order 2, DISPATCH_STEPS steps eager, captured at
     K = 1 and at K = DISPATCH_K, from one start on the same planted
     batches; ms a step, the busy share and kernels of a captured step, the
-    capture's seconds and pool.  -> the replays' launches."""
+    capture's seconds and pool.  -> the replays' launches, and K = 1's ms
+    a step."""
     opt = search_options(SID_SEARCH)
     pairs = _planted_pairs(dev, opt, DISPATCH_STEPS, seed=12)
     eager = make_search_trainer(dev, bank, opt)
@@ -2530,8 +2563,8 @@ def phase_dispatch_sid(dev, bank) -> dict:
          busy_share=f"{prof['busy_ms'] / prof['wall_ms']:.4f}",
          kernels_per_replay=prof["kernels"], copies=prof["copies"],
          nvidia_smi=repr(nvidia_smi(dev.index or 0)))
-    return {name: sum(r["launches"][name] for _, r in runs.values())
-            for name in KERNELS}
+    return ({name: sum(r["launches"][name] for _, r in runs.values())
+             for name in KERNELS}, runs[1][1]["ms"])
 
 
 def phase_dispatch_order1(dev, bank) -> dict:
@@ -2673,17 +2706,395 @@ def phase_dispatch_yolo(dev, bank) -> dict:
     return run["launches"]
 
 
-def phase_dispatch(dev, bank) -> dict:
-    """Phase 12: 12a-12d.  -> each kernel's launches through replays."""
+def phase_dispatch(dev, bank):
+    """Phase 12: 12a-12d.  -> each kernel's launches through replays, and
+    12a's ms a captured step at K = 1."""
     parts, seconds = [], []
     for part in (phase_dispatch_sid, phase_dispatch_order1, phase_dispatch_ft,
                  phase_dispatch_yolo):
         t0 = time.perf_counter()
         parts.append(part(dev, bank))
         seconds.append(f"{time.perf_counter() - t0:.1f}")
+    parts[0], sid_ms = parts[0]
     total = {name: sum(p[name] for p in parts) for name in KERNELS}
     line("phase 12 launches", replays=json.dumps(total).replace(" ", ""),
          seconds="/".join(seconds))
+    return total, sid_ms
+
+
+# ----------------------------------------------------------------- phase 13
+
+# Phase 13: data parallelism over a process group (parallel/mesh.py,
+# parallel/dp.py): every rank takes its rows of the global batch, its
+# criterion returns its share of the global loss and the gradients are
+# SUM-reduced, so each run is held against the serial one on the same global
+# batches.  The card is one, and NCCL puts no two ranks on one device: two
+# ranks share cuda:0 over gloo (13a, b, d, e, f; their steps run eagerly,
+# as gloo's collectives cannot be captured), so their times measure
+# correctness and overhead, not scaling; one NCCL rank (13c) runs the
+# captured step with its all-reduces inside the graph.  Tolerances:
+# phase 8's SEARCH_*_TOL for SID_search (the ranks sum the same terms in
+# another order: rounding, far inside them), DISPATCH_STATE_RTOL for the
+# DARTS state of 13c, phase 7's TRAIN_* for IspTrainer, phase 10's YOLO_*
+# for darts_yolo, ARTIFACT_TOL for the served artifact.  Cuts (steps, never
+# geometry): DP_SEARCH_STEPS of SID_search's 200,000 (13b, and 13c at K =
+# 1 and 2, both held to 13b's serial captured run), DP_ISP_STEPS of
+# SID_isp's 80,000, DP_YOLO_STEPS of yolo_search's 40,000; 13e runs
+# SEARCH_CLI_STEPS through torchrun against 9c's serial CLI run of the same
+# records and options.
+DP_WORLD = 2
+DP_SEARCH_STEPS = 3
+DP_ISP_STEPS = 3
+DP_YOLO_STEPS = 2
+
+
+def _rank_device() -> torch.device:
+    """This rank's card, made current by parallel/mesh.init_process_group."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _state_out(trainer) -> dict:
+    """A search trainer's alphas, theta and DARTS state on the host, as
+    _hold_dispatch reads them."""
+    return {"variables": {key: _to(trainer.variables[key], "cpu")
+                          for key in ("alphas", "theta")},
+            "opt_state": _to(trainer.opt_state, "cpu")}
+
+
+def _dp_rank(rank: int, root: str) -> None:
+    """One of DP_WORLD gloo ranks on the card: 13b SID_search, 13d SID_isp
+    (slice 2) and yolo_search, 13f the data-parallel artifact, each on the
+    global batches that <root>/dp13.pt holds; results to
+    <root>/dp_rank<r>.pt."""
+    tf32_off()
+    dev = _rank_device()
+    tmp = Path(root)
+    inputs = torch.load(tmp / "dp13.pt", weights_only=False)
+    bank = load_network(str(BANK))
+    out = {}
+
+    opt = search_options(SID_SEARCH)
+    mesh = dist_mesh(opt["datasets"]["train"]["batch_size"])
+    trainer = make_search_trainer(dev, bank, opt, mesh=mesh)
+    run = _captured_steps(trainer, _to(inputs["search"], dev), timed_from=1)
+    out["search"] = {"logs": run["logs"], "launches": run["launches"],
+                     "ms": run["ms"], "eager": trainer.graph is None,
+                     "mesh": tuple(mesh.shape), "state": _state_out(trainer)}
+
+    _, use_proxy, train_opt, _, _ = sid_isp_options()
+    trainer = make_trainer(dev, SLICE2, use_proxy, bank, train_opt, mesh=mesh)
+    run = _train_run(trainer, _to(inputs["isp"], dev), DP_ISP_STEPS, 1)
+    out["isp"] = {k: run[k] for k in ("losses", "logits", "launches", "ms")}
+
+    yopt = inputs["yolo_opt"]
+    criterion = make_yolo_criterion(
+        build_yolo_evaluator(yopt["yolo"], dev),
+        yopt["datasets"]["train"]["data_size"])
+    trainer = make_search_trainer(dev, bank, yopt, criterion=criterion,
+                                  target_key="label", mesh=mesh)
+    run = _captured_steps(trainer, _to(inputs["yolo"], dev), timed_from=1)
+    out["yolo"] = {"logs": run["logs"], "launches": run["launches"],
+                   "ms": run["ms"], "state": _state_out(trainer)}
+
+    served = load_artifact(str(tmp / "dp2.rispt"), device=dev)
+    frames = torch.from_numpy(np.load(tmp / "frames.npy")).to(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    y = served(frames)
+    torch.cuda.synchronize()
+    want = torch.from_numpy(np.load(tmp / "served.npy")).to(dev)
+    out["artifact"] = {"diff": float((y - want).abs().max()),
+                       "shape": tuple(y.shape), "launches": _counts(),
+                       "s": time.perf_counter() - t0}
+    torch.save(out, tmp / f"dp_rank{rank}.pt")
+
+
+def _dp_nccl_rank(rank: int, root: str) -> None:
+    """13c, one NCCL rank: SID_search's captured step with make_mesh(1)
+    passed explicitly, so the step's all-reduces run inside the graph, at
+    K = 1 and K = 2 against 13b's serial captured run without a mesh (its
+    logs, variables and DARTS state)."""
+    tf32_off()
+    dev = _rank_device()
+    tmp = Path(root)
+    inputs = torch.load(tmp / "dp13c.pt", weights_only=False)
+    pairs = _to(inputs["pairs"], dev)
+    ref = types.SimpleNamespace(**_to(inputs["state"], dev))
+    bank = load_network(str(BANK))
+    opt = search_options(SID_SEARCH)
+    backend = torch.distributed.get_backend()
+    if backend != "nccl":
+        raise AssertionError(f"13c runs over NCCL, not {backend}")
+    mesh = meshlib.make_mesh(1)
+    out = {"runs": {}}
+    for k in (1, 2):
+        trainer = make_search_trainer(dev, bank, _with_dispatch(opt, k),
+                                      mesh=mesh)
+        run = _captured_steps(trainer, pairs, timed_from=k)
+        _hold_dispatch(f"SID_search, NCCL mesh (1, 1), K={k}", trainer, ref,
+                       run["logs"][k - 1::k], inputs["logs"][k - 1::k],
+                       phase="phase 13c NCCL mesh vs no mesh")
+        graph = trainer.graph
+        out["runs"][k] = {"ms": run["ms"], "launches": run["launches"],
+                          "replay_launches": graph.launches,
+                          "capture_s": graph.capture_s}
+    torch.save(out, tmp / "dp_nccl.pt")
+
+
+def phase_dp_dryrun() -> dict:
+    """13a: dryrun_multichip over DP_WORLD gloo ranks on the card; the
+    native step's bilateral launches 5 times on each rank (one a pass).
+    -> the ranks' launches."""
+    t0 = time.perf_counter()
+    out = dryrun_multichip(DP_WORLD, "cuda")
+    ranks = [r[-1] for r in out["launches"]]
+    line("phase 13a dryrun_multichip", world=DP_WORLD, backend="gloo",
+         mesh=json.dumps(out["mesh"]).replace(" ", ""),
+         checks=" | ".join(out["lines"]).replace(" ", "_"),
+         rank_launches=json.dumps(ranks).replace(" ", ""),
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    want = {"bilateral": 5, "median": 0, "fastnlm": 0}
+    if any(r != want for r in ranks):
+        raise AssertionError(f"dry run launches {ranks}")
+    return {name: sum(r[name] for r in ranks) for name in KERNELS}
+
+
+def _dp_inputs(dev, bank, tmp: Path) -> dict:
+    """The global batches of 13b, 13c, 13d and 13f, their serial runs
+    here, and the files the ranks read."""
+    opt = search_options(SID_SEARCH)
+    if not opt.get("dist"):
+        raise AssertionError("configs/SID_search.yaml is dist: true")
+    pairs = _planted_pairs(dev, opt, DP_SEARCH_STEPS, seed=0)
+    serial = make_search_trainer(dev, bank, opt)
+    search = _captured_steps(serial, pairs, timed_from=1)
+    search["state"] = _state_out(serial)
+
+    arch, use_proxy, train_opt, n, size = sid_isp_options()
+    batch = make_training_batch(dev, n, size)
+    isp = _train_run(make_trainer(dev, SLICE2, use_proxy, bank, train_opt),
+                     batch, DP_ISP_STEPS, 1)
+
+    _, weights = write_yolo_weights(tmp)
+    yopt = config.parse_dict(_yolo_options(
+        YOLO_SEARCH, tmp, weights, {"n": 2 * YOLO_FRAMES}), root=str(tmp))
+    yn = yopt["datasets"]["train"]["batch_size"]
+    ypairs = [(_yolo_batch(yopt, 2 * i * yn, yn, dev),
+               _yolo_batch(yopt, (2 * i + 1) * yn, yn, dev))
+              for i in range(DP_YOLO_STEPS)]
+    kw = {"criterion": make_yolo_criterion(
+        build_yolo_evaluator(yopt["yolo"], dev),
+        yopt["datasets"]["train"]["data_size"]), "target_key": "label"}
+    ytrainer = make_search_trainer(dev, bank, yopt, **kw)
+    yolo = _eager_steps(ytrainer, ypairs, timed_from=1)
+    yolo["state"] = _state_out(ytrainer)
+    yolo["theta_move"] = _max_diff(
+        ytrainer.variables["theta"],
+        make_search_trainer(dev, bank, yopt, **kw).variables["theta"])
+
+    pipe = load_pipeline(dev, FLAGSHIP, bank=bank)
+    frames = make_frames(dev)
+    save_artifact(str(tmp / "dp2.rispt"), export_pipeline(
+        pipe, tuple(frames.shape), data_parallel=DP_WORLD))
+    np.save(tmp / "frames.npy", frames.cpu().numpy())
+    np.save(tmp / "served.npy", make_serving_fn(pipe, device=dev)(
+        frames).cpu().numpy())
+
+    torch.save({"search": _to(pairs, "cpu"),
+                "isp": _to(batch, "cpu"), "yolo": _to(ypairs, "cpu"),
+                "yolo_opt": yopt}, tmp / "dp13.pt")
+    torch.save({"pairs": _to(pairs, "cpu"), "logs": search["logs"],
+                "state": search["state"]}, tmp / "dp13c.pt")
+    del pipe, frames, serial, ytrainer
+    torch.cuda.empty_cache()
+    return {"search": search, "isp": isp, "yolo": yolo,
+            "batch": tuple(pairs[0][0]["noisy"].shape),
+            "yolo_batch": tuple(ypairs[0][0]["noisy"].shape)}
+
+
+def phase_dp_ranks(dev, bank, tmp: Path) -> tuple:
+    """13b, 13d, 13f over DP_WORLD gloo ranks, each held against its serial
+    run.  -> the ranks' launches, and 13b's serial ms a step."""
+    t0 = time.perf_counter()
+    ref = _dp_inputs(dev, bank, tmp)
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launch.spawn(_dp_rank, DP_WORLD, device="cuda",
+                 init_file=str(tmp / "dp_store"), args=(str(tmp),))
+    ranks = [torch.load(tmp / f"dp_rank{r}.pt", weights_only=False)
+             for r in range(DP_WORLD)]
+    ranks_s = time.perf_counter() - t0
+    total = {name: 0 for name in KERNELS}
+    for r, got in enumerate(ranks):
+        search, isp, yolo, art = (got[k] for k in ("search", "isp", "yolo",
+                                                   "artifact"))
+        line("phase 13b SID_search", rank=r, world=DP_WORLD, backend="gloo",
+             mesh=search["mesh"], eager=search["eager"],
+             batch=ref["batch"], steps=DP_SEARCH_STEPS,
+             ms_per_step=f"{search['ms']:.3f}",
+             serial_captured_ms_per_step=f"{ref['search']['ms']:.3f}",
+             launches=json.dumps(search["launches"]).replace(" ", ""))
+        _hold_dispatch(f"13b SID_search rank {r}",
+                       types.SimpleNamespace(**search["state"]),
+                       types.SimpleNamespace(**ref["search"]["state"]),
+                       search["logs"], ref["search"]["logs"],
+                       phase="phase 13 ranks vs serial")
+        if not search["eager"] or search["launches"] != {
+                name: 15 * DP_SEARCH_STEPS for name in KERNELS}:
+            raise AssertionError(f"13b rank {r}: {search['launches']}")
+
+        loss = max(abs(a - b) / abs(b) for a, b in zip(
+            isp["losses"], ref["isp"]["losses"]))
+        logit = max(float(np.abs(isp["logits"][k] - v).max())
+                    for k, v in ref["isp"]["logits"].items())
+        line("phase 13d SID_isp", rank=r, arch=SLICE2, steps=DP_ISP_STEPS,
+             ms_per_step=f"{isp['ms']:.3f}",
+             serial_ms_per_step=f"{ref['isp']['ms']:.3f}",
+             max_loss_rel_diff=f"{loss:.3e}", loss_rtol=TRAIN_LOSS_RTOL,
+             max_logit_diff=f"{logit:.3e}", logit_tol=TRAIN_LOGIT_TOL,
+             launches=json.dumps(isp["launches"]).replace(" ", ""))
+        if not (loss <= TRAIN_LOSS_RTOL and logit <= TRAIN_LOGIT_TOL) \
+                or isp["launches"] != {"bilateral": 0, "median": DP_ISP_STEPS,
+                                       "fastnlm": DP_ISP_STEPS}:
+            raise AssertionError(f"13d SID_isp rank {r}")
+
+        line("phase 13d yolo_search", rank=r, batch=ref["yolo_batch"],
+             steps=DP_YOLO_STEPS, ms_per_step=f"{yolo['ms']:.3f}",
+             serial_eager_ms_per_step=f"{ref['yolo']['ms']:.3f}",
+             launches=json.dumps(yolo["launches"]).replace(" ", ""))
+        _hold_dispatch(f"13d darts_yolo rank {r}",
+                       types.SimpleNamespace(**yolo["state"]),
+                       types.SimpleNamespace(**ref["yolo"]["state"]),
+                       yolo["logs"], ref["yolo"]["logs"],
+                       loss_rtol=YOLO_LOSS_RTOL, alpha_tol=YOLO_ALPHA_TOL,
+                       theta_tol=YOLO_THETA_RTOL * ref["yolo"]["theta_move"],
+                       state_rtol=None, phase="phase 13 ranks vs serial")
+        if yolo["launches"] != {name: 15 * DP_YOLO_STEPS for name in KERNELS}:
+            raise AssertionError(f"13d darts_yolo rank {r}")
+
+        line("phase 13f data-parallel artifact", rank=r, arch=FLAGSHIP,
+             data_parallel=DP_WORLD, out=art["shape"],
+             max_abs_diff=f"{art['diff']:.3e}", tol=ARTIFACT_TOL,
+             first_call_s=f"{art['s']:.2f}")
+        if not (art["diff"] <= ARTIFACT_TOL
+                and art["shape"] == (DP_WORLD, *FRAME, 3)):
+            raise AssertionError(f"13f rank {r}: {art}")
+        for name in KERNELS:
+            total[name] += (search["launches"][name] + isp["launches"][name]
+                            + yolo["launches"][name]
+                            + art["launches"][name])
+    line("phase 13 ranks", world=DP_WORLD, serial_runs_s=f"{prep_s:.1f}",
+         ranks_s=f"{ranks_s:.1f}")
+    return total, ref["search"]["ms"]
+
+
+def phase_dp_nccl(tmp: Path, serial_ms: float, phase12_ms: float) -> dict:
+    """13c: one NCCL rank, the captured step with live reductions, after
+    phase_dp_ranks wrote 13b's serial run.  -> its launches."""
+    t0 = time.perf_counter()
+    launch.spawn(_dp_nccl_rank, 1, device="cuda",
+                 init_file=str(tmp / "nccl_store"), args=(str(tmp),))
+    got = torch.load(tmp / "dp_nccl.pt", weights_only=False)
+    total = {name: 0 for name in KERNELS}
+    for k, run in got["runs"].items():
+        line("phase 13c SID_search", backend="nccl", mesh=(1, 1), k=k,
+             steps=DP_SEARCH_STEPS, ms_per_step=f"{run['ms']:.3f}",
+             no_mesh_ms_per_step=f"{serial_ms:.3f}",
+             phase12_k1_ms_per_step=f"{phase12_ms:.3f}",
+             capture_s=f"{run['capture_s']:.2f}",
+             launches=json.dumps(run["launches"]).replace(" ", ""))
+        if run["launches"] != {name: 15 * DP_SEARCH_STEPS for name in KERNELS} \
+                or run["replay_launches"] != {name: 15 for name in KERNELS}:
+            raise AssertionError(f"13c K={k}: {run['launches']}")
+        for name in KERNELS:
+            total[name] += run["launches"][name]
+    line("phase 13c", seconds=f"{time.perf_counter() - t0:.1f}")
+    return total
+
+
+def phase_dp_cli(tmp: Path) -> dict:
+    """13e: python -m torch.distributed.run --standalone --nproc-per-node
+    DP_WORLD over the train CLI, SID_search.yaml as written (dist: true) on
+    phase 9's records, SEARCH_CLI_STEPS steps, against 9c's serial CLI run
+    of the same options; rank 0 alone saves the checkpoint.  -> the
+    ranks' launches."""
+    opt = yaml.safe_load(SID_SEARCH.read_text())
+    opt["datasets"]["train"].update(mode="SID_Records",
+                                    dataroot=str(tmp / "records"))
+    opt["train"]["niter"] = SEARCH_CLI_STEPS
+    opt["path"] = {"root": str(tmp / "dp"), "pretrain_proxies": str(BANK)}
+    runner = tmp / "cli_runner.py"
+    runner.write_text(_CLI_RUNNER)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(DP_WORLD), str(runner), "",
+         "reconfigisp_tpu_torch.train", "--opt",
+         _write_options(tmp / "search_dp.yaml", opt)],
+        cwd=str(ROOT), env=_child_env(), capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    ranks = sorted((json.loads(c) for c in re.findall(
+        r"^CLI_COUNTS (.*)$", proc.stdout, re.M)), key=lambda c: c["rank"])
+    summary = _summary(proc.stdout)
+    rel = Path("experiments") / "SID_search" / "models" / \
+        f"{SEARCH_CLI_STEPS}_G.ckpt"
+    got, want = (load_network(str(root / rel)) for root in (tmp / "dp", tmp))
+    alpha = max(float(np.abs(got["alphas"][k] - v).max())
+                for k, v in want["alphas"].items())
+    theta = max(float(np.abs(got["theta"][s][o] - v).max())
+                for s, ops in want["theta"].items() for o, v in ops.items())
+    saves = [[Path(p).name for p in c["saves"]] for c in ranks]
+    line("phase 13e torchrun train.py", world=DP_WORLD,
+         config="SID_search.yaml", steps=summary["steps"],
+         loss=f"{summary['loss']:.6f}",
+         steady_s_per_iter=summary.get("steady_s_per_iter"),
+         max_alpha_diff=f"{alpha:.3e}", alpha_tol=SEARCH_ALPHA_TOL,
+         max_theta_diff=f"{theta:.3e}", theta_tol=SEARCH_THETA_TOL,
+         saves=json.dumps(saves).replace(" ", ""),
+         summaries=proc.stdout.count("training done:"),
+         launches=json.dumps([c["launches"] for c in ranks]).replace(" ", ""),
+         process_s=f"{seconds:.2f}")
+    expected = {name: 15 * SEARCH_CLI_STEPS for name in KERNELS}
+    if not (alpha <= SEARCH_ALPHA_TOL and theta <= SEARCH_THETA_TOL
+            and [c["rank"] for c in ranks] == ["0", "1"]
+            and saves == [[rel.name], []]
+            and proc.stdout.count("training done:") == 1
+            and all(c["launches"] == expected for c in ranks)):
+        raise AssertionError("13e: the torchrun run parts from the serial "
+                             "CLI run")
+    return {name: sum(c["launches"][name] for c in ranks) for name in KERNELS}
+
+
+def phase_data_parallel(dev, bank, tmp: Path, phase12_ms: float) -> dict:
+    """Phase 13: 13a-13f.  -> the kernels' launches on every rank."""
+    seconds = []
+
+    def timed(part, *args):
+        t0 = time.perf_counter()
+        out = part(*args)
+        seconds.append(f"{time.perf_counter() - t0:.1f}")
+        return out
+
+    dry = timed(phase_dp_dryrun)
+    ranks, serial_ms = timed(phase_dp_ranks, dev, bank, tmp)
+    nccl = timed(phase_dp_nccl, tmp, serial_ms, phase12_ms)
+    cli = timed(phase_dp_cli, tmp)
+    total = {name: sum(p[name] for p in (dry, ranks, nccl, cli))
+             for name in KERNELS}
+    line("phase 13 launches", ranks=json.dumps(total).replace(" ", ""),
+         seconds="/".join(seconds), nvidia_smi=repr(nvidia_smi(dev.index or 0)))
     return total
 
 
@@ -2712,10 +3123,14 @@ def main() -> int:
     phase_gradients(dev)
     phase_latency(dev)
     search_launches, search_ms = phase_search(dev, bank)
-    entry = phase_entry_points(dev, bank, train_ms[SLICE2], search_ms)
-    yolo_launches = phase_yolo(dev, bank)
-    artifact_launches = phase_deployment(dev, bank)
-    graph_launches = phase_dispatch(dev, bank)
+    with tempfile.TemporaryDirectory() as root:
+        tmp = Path(root)
+        entry = phase_entry_points(dev, bank, train_ms[SLICE2], search_ms,
+                                   tmp)
+        yolo_launches = phase_yolo(dev, bank)
+        artifact_launches = phase_deployment(dev, bank)
+        graph_launches, dispatch_ms = phase_dispatch(dev, bank)
+        dp_launches = phase_data_parallel(dev, bank, tmp, dispatch_ms)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -2728,6 +3143,7 @@ def main() -> int:
         "yolo_launches": yolo_launches[name],
         "artifact_launches": artifact_launches[name],
         "graph_launches": graph_launches[name],
+        "dp_launches": dp_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

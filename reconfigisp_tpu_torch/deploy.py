@@ -15,7 +15,13 @@ place of the JAX package's StableHLO:
     and recorded in the header;
   * the program runs on the card (the kernels) or on the CPU (their plain
     forms); `load_pipeline` moves it to the device it is asked for, cuda
-    unless the caller names the CPU.
+    unless the caller names the CPU;
+  * a data-parallel artifact (`data_parallel=d`, whole-frame) holds the
+    program of one rank's rows, N / d of the served batch; loaded in a
+    process group of at least d ranks (parallel/mesh.py), each rank serves
+    its rows and the output is gathered back to the whole batch.  A space
+    axis on whole frames waits for halo exchanges (ROADMAP.md, the item on
+    the whole-frame space axis).
 
 Artifact layout: the magic MAGIC (the JAX package's is RISPTPU1, so each
 loader refuses the other's artifact), uint32 little-endian header length, a
@@ -39,6 +45,7 @@ from reconfigisp_tpu_torch import precision
 from reconfigisp_tpu_torch.device import resolve_device
 # the custom ops a serving program calls, registered on import
 from reconfigisp_tpu_torch.ops.kernels import bilateral, fastnlm, median  # noqa: F401
+from reconfigisp_tpu_torch.parallel import mesh as meshlib
 from reconfigisp_tpu_torch.parallel.tiling import tiled_apply
 
 MAGIC = b"RISPTOR1"
@@ -85,18 +92,21 @@ def make_serving_fn(pipe, *, patch: Optional[int] = None,
     return serve
 
 
-def _check_mesh(data: int, space: int, device: torch.device) -> None:
-    """A (data x space) mesh baked into the program: the JAX package's
-    checks, then NotImplementedError, since the port has no mesh yet."""
-    n = data * space
-    have = torch.cuda.device_count() if device.type == "cuda" else 1
-    if have < n:
-        raise ValueError(f"mesh data={data} x space={space} needs {n} "
-                         f"devices, have {have}")
-    raise NotImplementedError(
-        f"mesh data={data} x space={space}: sharded serving is not ported "
-        "yet (ROADMAP.md, the item on parallel/mesh.py and parallel/dp.py); "
-        "export with data_parallel = space_parallel = 1")
+def _check_mesh(data: int, space: int):
+    """A (data x space) mesh baked into an artifact: data parallelism over
+    a process group of at least `data` ranks (the JAX package's check, a
+    rank for a device) -> the mesh.  space > 1 on a whole frame raises:
+    the port has no halo exchange yet."""
+    if space > 1:
+        raise NotImplementedError(
+            f"mesh data={data} x space={space}: the space axis on whole "
+            "frames is not ported (ROADMAP.md, the item on the whole-frame "
+            "space axis); export with space_parallel = 1")
+    have = meshlib.world_size()
+    if have < data:
+        raise ValueError(f"mesh data={data} x space={space} needs "
+                         f"{data * space} devices, have {have}")
+    return meshlib.make_mesh(data)
 
 
 def _platform_names(platforms: Optional[Sequence[str]]) -> list:
@@ -127,9 +137,11 @@ def export_pipeline(pipe, input_shape: Sequence, *,
     exported symbolic (torch.export.Dim) and one artifact serves any batch
     size; the tiled engine needs a concrete batch.  The trace runs on the
     pipeline's device.  storage: CNN storage applied at trace time ('f32' or
-    'bf16'; None = the active policy).  data_parallel x space_parallel > 1
-    (a mesh baked into the program) is not ported: NotImplementedError after
-    the JAX package's checks.  platforms: where the artifact may be loaded,
+    'bf16'; None = the active policy).  data_parallel = d > 1 (whole-frame)
+    records the mesh {"data": d, "space": 1} and exports the program of one
+    rank's N / d rows; it needs no process group here, and the loader needs
+    one of d ranks.  space_parallel > 1 raises NotImplementedError.
+    platforms: where the artifact may be loaded,
     'cuda' (or 'gpu') and 'cpu'; None = both, since the program runs on
     either device.  Recorded in the header; load_pipeline holds to it."""
     mesh_dims = (int(data_parallel), int(space_parallel))
@@ -137,15 +149,22 @@ def export_pipeline(pipe, input_shape: Sequence, *,
         if patch:
             raise ValueError("mesh-sharded export is whole-frame only; the "
                              "tiled engine is the single-chip memory story")
-        _check_mesh(*mesh_dims, pipe.device)
+        if mesh_dims[1] > 1:
+            _check_mesh(*mesh_dims)
     names = _platform_names(platforms)
     dims = list(input_shape)
     poly_batch = dims[0] in (-1, "b", None)
     if poly_batch and patch:
         raise ValueError("symbolic batch is whole-frame only; the tiled "
                          "engine needs a concrete batch size")
-    example = torch.zeros((2 if poly_batch else int(dims[0]),
-                           *(int(d) for d in dims[1:])), device=pipe.device)
+    rows = 2 if poly_batch else int(dims[0])
+    if not poly_batch:
+        # one rank's rows; raises as a NamedSharding does if d does not
+        # divide the batch
+        rows = meshlib.shard_slices((rows,), 0, mesh_dims[0], 0, 1)[0]
+        rows = rows.stop - rows.start
+    example = torch.zeros((rows, *(int(d) for d in dims[1:])),
+                          device=pipe.device)
     dynamic = ({0: torch.export.Dim("b")},) if poly_batch else None
     program = ServingProgram(pipe, patch, stride, chunk)
     dtype = (precision._DTYPES[storage] if storage
@@ -168,7 +187,8 @@ def export_pipeline(pipe, input_shape: Sequence, *,
         "stride": int(stride or patch) if patch else None,
         "chunk": int(chunk) if patch else None,
         "cnn_storage": str(dtype).removeprefix("torch."),
-        "mesh": None,
+        "mesh": ({"data": mesh_dims[0], "space": mesh_dims[1]}
+                 if mesh_dims != (1, 1) else None),
         "platforms": names,
     }
     hjson = json.dumps(header).encode("utf-8")
@@ -182,13 +202,18 @@ def save_artifact(path: str, blob: bytes) -> None:
 
 class ServingPipeline:
     """A loaded artifact: `meta` dict + `__call__(image) -> sRGB` on
-    `device`.  The program holds the weights; no op zoo is needed."""
+    `device`.  The program holds the weights; no op zoo is needed.  A
+    data-parallel artifact is served by every rank of its mesh, each
+    called with the whole batch: it runs its rows and returns the whole
+    output, gathered in rank order."""
 
     def __init__(self, meta: dict, exported, device: torch.device):
         self.meta = meta
         self.device = device
         self._exported = exported
         self._module = exported.module()
+        self._mesh = (_check_mesh(meta["mesh"]["data"], meta["mesh"]["space"])
+                      if meta.get("mesh") else None)
 
     @property
     def architecture(self) -> str:
@@ -206,7 +231,11 @@ class ServingPipeline:
             raise ValueError(f"artifact serves {list(want)}, got "
                              f"{list(x.shape)}")
         with torch.inference_mode():
-            return self._module(x)
+            if self._mesh is None:
+                return self._module(x)
+            y = self._module(meshlib.shard_batch(self._mesh, x))
+            return meshlib.all_gather(
+                y, self._mesh.get_group(meshlib.DATA_AXIS))
 
 
 def split_artifact(blob: bytes):

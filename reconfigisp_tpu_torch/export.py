@@ -32,9 +32,11 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk", type=int, default=32)
     ap.add_argument("--storage", default=None, choices=[None, "f32", "bf16"])
     ap.add_argument("--data-parallel", type=int, default=1,
-                    help="mesh 'data' axis; not ported (must be 1)")
+                    help="mesh 'data' axis: the ranks that serve the batch"
+                         " (whole-frame path only)")
     ap.add_argument("--space-parallel", type=int, default=1,
-                    help="mesh 'space' axis; not ported (must be 1)")
+                    help="mesh 'space' axis; not ported on whole frames"
+                         " (must be 1)")
     ap.add_argument("--platforms", default=None,
                     help="comma list of cuda (or gpu) and cpu: where the "
                          "artifact may be loaded; both by default")

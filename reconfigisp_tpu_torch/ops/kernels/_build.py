@@ -15,6 +15,7 @@ checks it shares with the op's fake implementation.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -57,8 +58,18 @@ def library_path(name: str) -> Path:
 def build(names) -> dict:
     """Compile every named source that is not built yet, all nvcc processes
     at once.  Returns {name: (seconds, compiler output)}; raises on a failed
-    build."""
+    build.  The ranks of a process group build under one file lock: the
+    first builds, the others find its libraries."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_unlocked(names)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_unlocked(names) -> dict:
     started = {}
     for name in names:
         lib = library_path(name)

@@ -5,6 +5,13 @@ the same order (tile position outer, image inner) and processed in groups of
 `chunk` positions by a Python loop; each group's outputs are blended into
 the frame at once, so no stack of all tiles is ever held.  The last group
 is not zero-padded; the blend is the JAX one, term for term.
+
+Over a space group (`group=`, the mesh's space axis; the counterpart of the
+tile program under the JAX mesh, __graft_entry__.dryrun_multichip check 3)
+rank s of the group runs every size-th group of positions from the s-th,
+blends them into zeros, and `out` and `count` are SUM-reduced over the
+group before the divide: the whole frame's blend, up to the order of the
+sums.
 """
 
 from __future__ import annotations
@@ -13,6 +20,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from reconfigisp_tpu_torch.parallel import mesh as meshlib
 
 
 def feather_mask(size, edge) -> np.ndarray:
@@ -40,11 +50,14 @@ def tile_positions(total: int, size: int, stride: int) -> list:
 
 
 def tiled_apply(fn: Callable, x: torch.Tensor, *, patch: int, stride: int,
-                chunk: int = 4, out_channels: int = 3) -> torch.Tensor:
+                chunk: int = 4, out_channels: int = 3,
+                group=None) -> torch.Tensor:
     """Apply fn over overlapping patches of x (N,H,W,C) and blend.
 
     fn takes and returns a batch of tiles (chunk*N, patch, patch, C); patch,
-    stride, H and W must be even to keep the RGGB phase."""
+    stride, H and W must be even to keep the RGGB phase.  With a space
+    `group` the groups of positions are dealt out over its ranks (module
+    docstring); every rank returns the whole blend."""
     n, H, W, c = x.shape
     if patch % 2 or stride % 2 or H % 2 or W % 2:
         raise ValueError("RGGB alignment needs even patch, stride, H and W")
@@ -56,17 +69,27 @@ def tiled_apply(fn: Callable, x: torch.Tensor, *, patch: int, stride: int,
 
     out = count = None
     step = max(1, chunk)
-    for g in range(0, len(positions), step):
-        group = positions[g:g + step]
+    starts = range(0, len(positions), step)
+    if group is not None:
+        starts = starts[dist.get_rank(group)::dist.get_world_size(group)]
+    for g in starts:
+        here = positions[g:g + step]
         tiles = torch.cat([x[:, y0:y0 + patch, x0:x0 + patch, :]
-                           for (y0, x0) in group], dim=0)
+                           for (y0, x0) in here], dim=0)
         outs = fn(tiles)
         if out is None:
             out = torch.zeros((n, H, W, out_channels), dtype=outs.dtype,
                               device=x.device)
             count = torch.zeros((1, H, W, 1), dtype=outs.dtype,
                                 device=x.device)
-        for k, (y0, x0) in enumerate(group):
+        for k, (y0, x0) in enumerate(here):
             out[:, y0:y0 + patch, x0:x0 + patch, :] += outs[k * n:(k + 1) * n] * mask
             count[:, y0:y0 + patch, x0:x0 + patch, :] += mask
+    if group is not None:
+        if out is None:  # more ranks than groups of positions
+            out = torch.zeros((n, H, W, out_channels), dtype=x.dtype,
+                              device=x.device)
+            count = torch.zeros((1, H, W, 1), dtype=x.dtype, device=x.device)
+        meshlib.all_reduce(out, group)
+        meshlib.all_reduce(count, group)
     return out / count

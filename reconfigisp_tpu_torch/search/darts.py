@@ -17,7 +17,19 @@ passes:
   5. after Adam on the alphas, the weights' gradient at the new alphas on
      the training batch, for SGD with momentum on theta.
 The first-order step takes the validation gradient of the alphas at the
-current weights in place of 1-4.  A gradient that does not reach a tensor
+current weights in place of 1-4.
+
+With a data group (`group=`, the mesh's data axis: the counterpart of the
+JAX step's `axis_name`) the batch is this rank's shard and the criterion
+returns its share of the global loss (utils/losses.py), so summing the
+shares' gradients over the group (parallel/dp.reduce_grads) gives the
+global batch's gradient, as the JAX trainers' sharded jit computes it.  The
+step reduces where the JAX step calls maybe_pmean: the weights' gradient of
+pass 1, the alphas' and theta_v's of pass 2 (so eps comes from the global
+|dtheta_v|), the Hessian term, the alphas' gradient of the first-order step
+and the weights' of pass 5; and it sums the logged losses.  It sums, where
+JAX's axis_name path takes a mean of per-shard gradients, which differs
+from the sharded jit for a count-normalised loss.  A gradient that does not reach a tensor
 (the median's logit, a path multiplied by an exact 0) is zeros, as JAX
 gives, not None: every tensor's optimiser state moves every step.  The
 optimisers follow torch's semantics, as the JAX package's do: SGD
@@ -29,13 +41,18 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import logging
 import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from reconfigisp_tpu_torch.ops.kernels import _vjp
+from reconfigisp_tpu_torch.parallel.dp import reduce_grads
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +115,7 @@ def init_darts_opt_state(variables: dict) -> dict:
 
 
 def make_darts_step(forward: Callable, criterion: Callable,
-                    cfg: DartsConfig) -> Callable:
+                    cfg: DartsConfig, group=None) -> Callable:
     """step(variables, opt_state, batch, lr_scale) -> (variables, opt_state,
     logs).
 
@@ -111,14 +128,23 @@ def make_darts_step(forward: Callable, criterion: Callable,
     0-d tensor, which a captured step reads on the device; either way the
     rates are float32 products, as in the JAX step, whose jit takes the
     scale as a float32 array.  The logs "loss", "val_loss", "eps" and
-    "dtheta_norm" are 0-d tensors."""
+    "dtheta_norm" are 0-d tensors.  With `group`, the criterion is called
+    with group= and the step reduces over it (module docstring); the logs
+    are the global batch's."""
 
     def loss_on(theta, alphas, omega, img, gt, flag=None):
         out = forward(theta, alphas, omega, img)
         pred, latency = out[0], out[1]
         mids = out[2] if len(out) > 2 else None
         kw = {} if flag is None else {"glb_flag": flag}
+        if group is not None:
+            kw["group"] = group
         return criterion(pred, gt, latency=latency, **kw), mids
+
+    def reduce(tree):
+        if group is not None:
+            reduce_grads(_leaves(tree), group)
+        return tree
 
     def step(variables, opt_state, batch, lr_scale):
         theta, alphas, omega = (variables["theta"], variables["alphas"],
@@ -136,14 +162,15 @@ def make_darts_step(forward: Callable, criterion: Callable,
         if cfg.order == 1:
             a = _leaf_copies(alphas, True)
             val_loss, _ = loss_on(theta, a, omega, val_img, val_gt, val_flag)
-            dalpha = _grad(val_loss, a)
+            dalpha = reduce(_grad(val_loss, a))
             g_alpha = _map(lambda d: torch.where(
                 torch.isnan(d).any(), torch.zeros_like(d), d), dalpha)
             eps = norm = torch.zeros((), device=val_loss.device)
         else:
             # 1) virtual step: theta_v = theta - lr_meta (mu buf + g)
             t = _leaf_copies(theta, True)
-            g_w = _grad(loss_on(t, alphas, omega, img, gt, flag)[0], t)
+            g_w = reduce(_grad(loss_on(t, alphas, omega, img, gt, flag)[0],
+                               t))
             theta_v = _map(lambda p, buf, g: p - cfg.lr_meta * (
                 cfg.momentum * buf + g), theta, opt_state["momentum"], g_w)
 
@@ -151,7 +178,7 @@ def make_darts_step(forward: Callable, criterion: Callable,
             a = _leaf_copies(alphas, True)
             tv = _leaf_copies(theta_v, True)
             val_loss, _ = loss_on(tv, a, omega, val_img, val_gt, val_flag)
-            grads = _grad(val_loss, {"a": a, "tv": tv})
+            grads = reduce(_grad(val_loss, {"a": a, "tv": tv}))
             dalpha, dtheta_v = grads["a"], grads["tv"]
 
             # 3), 4) the finite-difference Hessian-vector term
@@ -166,8 +193,8 @@ def make_darts_step(forward: Callable, criterion: Callable,
 
             pos, neg = dalpha_at(1.0), dalpha_at(-1.0)
             denom = torch.where(eps > 0, 2.0 * eps, torch.ones_like(eps))
-            hessian = _map(lambda p_, n_: torch.where(
-                eps > 0, (p_ - n_) / denom, torch.zeros_like(p_)), pos, neg)
+            hessian = reduce(_map(lambda p_, n_: torch.where(
+                eps > 0, (p_ - n_) / denom, torch.zeros_like(p_)), pos, neg))
 
             # the reference's NaN guard (darts_model.py:260-263): a NaN
             # zeroes that slot's gradient
@@ -194,7 +221,7 @@ def make_darts_step(forward: Callable, criterion: Callable,
         # steps the alphas before the weights, train.py:207-209)
         t = _leaf_copies(theta, True)
         train_loss, mids = loss_on(t, new_alphas, omega, img, gt, flag)
-        g_theta = _grad(train_loss, t)
+        g_theta = reduce(_grad(train_loss, t))
         new_buf = _map(lambda buf, g: cfg.momentum * buf + g,
                        opt_state["momentum"], g_theta)
         new_theta = _map(lambda p, b: p - lr_theta * b, theta, new_buf)
@@ -202,8 +229,10 @@ def make_darts_step(forward: Callable, criterion: Callable,
         new_vars = {"theta": new_theta, "alphas": new_alphas, "omega": omega}
         new_opt = {"momentum": new_buf, "adam_m": m, "adam_v": v,
                    "adam_t": t_adam}
-        logs = {"loss": train_loss.detach(), "val_loss": val_loss.detach(),
-                "eps": eps, "dtheta_norm": norm}
+        losses = {"loss": train_loss.detach(), "val_loss": val_loss.detach()}
+        if group is not None:
+            losses = reduce(_map(torch.clone, losses))
+        logs = {**losses, "eps": eps, "dtheta_norm": norm}
         if mids is not None:
             logs["_mids"] = mids.detach()
         return new_vars, new_opt, logs
@@ -213,7 +242,7 @@ def make_darts_step(forward: Callable, criterion: Callable,
 
 # ------------------------------------------------------------ K-step dispatch
 
-def make_darts_multi_step(step: Callable) -> Callable:
+def make_darts_multi_step(step: Callable, group=None) -> Callable:
     """K steps per dispatch: the counterpart of the JAX package's
     make_darts_multi_step (reconfigisp_tpu/search/darts.py:200-236), which
     scans them into one XLA program.
@@ -238,11 +267,22 @@ def make_darts_multi_step(step: Callable) -> Callable:
     not K: a second-order step is some 10^5 kernel nodes or more, and a
     graph of K steps would take K times as long to capture and instantiate,
     and K times the memory, to save K - 1 launches of a graph.  `multi.graph`
-    is the captured graph's runner, None before the first call on CUDA."""
+    is the captured graph's runner, None before the first call on CUDA.
+
+    `group` is the data group the step reduces over.  NCCL collectives are
+    captured with the step; gloo's cannot be (they run on host copies), so
+    under a gloo group the steps run eagerly on CUDA too, as on the CPU,
+    and `multi.graph` stays None."""
+    capture = group is None or dist.get_backend(group) == "nccl"
 
     def multi(variables, opt_state, batches, lr_scales):
         device = _leaves(variables["alphas"])[0].device
-        if device.type == "cuda":
+        if device.type == "cuda" and not capture and not multi.logged:
+            multi.logged = True
+            log.warning("search steps run eagerly on %s: the gloo group's "
+                        "collectives cannot be captured in a CUDA graph",
+                        device)
+        if device.type == "cuda" and capture:
             if multi.graph is None:
                 first = {k: v[0] for k, v in batches.items()}
                 multi.graph = _StepGraph(step, variables, opt_state, first)
@@ -259,6 +299,7 @@ def make_darts_multi_step(step: Callable) -> Callable:
         return variables, opt_state, logs
 
     multi.graph = None
+    multi.logged = False
     return multi
 
 

@@ -17,8 +17,19 @@ convert.supernet_variables_to_jax, convert.darts_opt_state_to_jax), so the
 JAX package resumes what these trainers save, and the reverse.  The search
 trainers dispatch `steps_per_dispatch` steps at a time, as the JAX package's
 do (search/darts.make_darts_multi_step: on CUDA each step a replay of one
-captured CUDA graph).  Not ported yet (ROADMAP.md): data-parallel training
-(the JAX trainers' `mesh`, DDP).
+captured CUDA graph).
+
+Data parallelism (the JAX trainers' `mesh`): each trainer takes a mesh
+(parallel/mesh.make_mesh) whose ranks share the global batch.  Every rank
+is given the whole batch, takes its rows (parallel/mesh.shard_batch),
+computes its share of the global loss (the criterion called with the data
+group) and SUM-reduces the gradients of the shares (parallel/dp), so every
+rank applies the global batch's gradient, as the JAX package's sharded jit
+does.  DDP is not used: it averages per-rank gradients, which equals the
+global gradient only for a plain mean over equal shards, and the local/
+global and YOLO losses normalise by counts over the whole batch.  A
+criterion passed to a trainer with a mesh must take `group=` and return
+its share (utils/losses.make_criterion, make_yolo_criterion do).
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ import numpy as np
 import torch
 
 from reconfigisp_tpu_torch import convert
+from reconfigisp_tpu_torch.parallel import mesh as meshlib
+from reconfigisp_tpu_torch.parallel.dp import reduce_grads
 from reconfigisp_tpu_torch.pipeline import Pipeline, resolve_device
 from reconfigisp_tpu_torch.search.darts import (
     DartsConfig, _map, init_darts_opt_state, make_darts_multi_step,
@@ -61,13 +74,26 @@ class IspTrainer:
     the CNNs, as JAX differentiates the logits alone.  Batches are dicts of
     tensors or numpy arrays with "noisy" (N, H, W, 1) mosaics, the target
     under `target_key` and, for the local/global loss, "glb_flag"; they are
-    moved to the pipeline's device."""
+    moved to the pipeline's device.
+
+    With a `mesh`, each rank takes its rows of the global batch, backward
+    runs on its share of the loss, the gradients are SUM-reduced over the
+    data group and Adam steps on the global gradient; the logged loss is
+    the global batch's (module docstring).  The pipeline's state is
+    broadcast from the mesh's first rank at construction.  eval_loss and
+    test run on this rank alone, on the batch they are given."""
 
     def __init__(self, pipeline: Pipeline, train_opt: dict, *,
                  train_weights: bool = False,
                  criterion: Optional[Callable] = None,
-                 target_key: str = "gt"):
+                 target_key: str = "gt", mesh=None):
         self.pipeline = pipeline
+        self.mesh = mesh
+        self.group = (None if mesh is None
+                      else mesh.get_group(meshlib.DATA_AXIS))
+        if mesh is not None:
+            meshlib.replicate(mesh, {"logits": pipeline.logits,
+                                     "weights": pipeline.weights})
         self.train_weights = train_weights
         self.target_key = target_key
         self.criterion = criterion or losses.make_criterion(
@@ -101,10 +127,12 @@ class IspTrainer:
     def _batch(self, batch: dict) -> dict:
         return {k: self._tensor(v) for k, v in batch.items()}
 
-    def _loss(self, batch: dict) -> torch.Tensor:
+    def _loss(self, batch: dict, group=None) -> torch.Tensor:
         pred, _, latency = self.pipeline(batch["noisy"],
                                          return_intermediates=True)
         kw = {"glb_flag": batch["glb_flag"]} if "glb_flag" in batch else {}
+        if group is not None:
+            kw["group"] = group
         return self.criterion(pred, batch[self.target_key], latency=latency,
                               **kw)
 
@@ -115,8 +143,15 @@ class IspTrainer:
         lr = self.lr * self.schedule(self.step_idx)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        loss = self._loss(self._batch(batch))
+        if self.mesh is not None:
+            batch = meshlib.shard_batch(self.mesh, batch)
+        loss = self._loss(self._batch(batch), self.group)
         grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        if self.group is not None:
+            # the same parameters get a gradient on every rank
+            reduce_grads([g for g in grads if g is not None], self.group)
+            loss = loss.detach().clone()
+            reduce_grads([loss], self.group)
         for p, g in zip(self._params, grads):
             p.grad = g  # None where no gradient reaches p: Adam skips it
         self.optimizer.step()
@@ -190,16 +225,28 @@ class DartsTrainer:
     which a dispatch updates in place, and resume and load_pretrained write
     into them.  Batches are dicts of tensors or numpy arrays with "noisy"
     mosaics, the target under `target_key` and optionally "glb_flag"; they
-    are moved to that device, K at a time."""
+    are moved to that device, K at a time.
+
+    With a `mesh`, each dispatch takes this rank's rows of the K global
+    batches and the step reduces over the data group
+    (search/darts.make_darts_step's `group`), so every rank holds the
+    serial trainer's variables; the variables are broadcast from the
+    mesh's first rank at construction.  Under a gloo group on CUDA the
+    steps run eagerly (make_darts_multi_step) and `graph` is None."""
 
     def __init__(self, supernet: SuperNet, train_opt: dict, *,
                  generator: Optional[torch.Generator] = None,
                  forward: Optional[Callable] = None,
                  criterion: Optional[Callable] = None,
-                 target_key: str = "gt"):
+                 target_key: str = "gt", mesh=None):
         self.net = supernet
         self.target_key = target_key
+        self.mesh = mesh
+        self.group = (None if mesh is None
+                      else mesh.get_group(meshlib.DATA_AXIS))
         self.variables = supernet.init(generator)
+        if mesh is not None:
+            meshlib.replicate(mesh, self.variables)
         self.opt_state = init_darts_opt_state(self.variables)
         self.criterion = criterion or losses.make_criterion(
             train_opt.get("pixel_criterion", "l2"), train_opt)
@@ -220,9 +267,10 @@ class DartsTrainer:
                     {"theta": theta, "alphas": alphas, "omega": omega},
                     img, return_aux=True)
                 return y, aux["latency"]
-        self._step = make_darts_step(forward, self.criterion, self.cfg)
+        self._step = make_darts_step(forward, self.criterion, self.cfg,
+                                     group=self.group)
         self.k = max(1, int(train_opt.get("steps_per_dispatch", 1)))
-        self._multi = make_darts_multi_step(self._step)
+        self._multi = make_darts_multi_step(self._step, group=self.group)
         self._buf: list = []
         self._last_logs = {"loss": float("nan"), "val_loss": float("nan")}
 
@@ -265,10 +313,13 @@ class DartsTrainer:
         stacked = {}
         for key in buf[0][0]:
             values = [b[key] for b, _ in buf]
-            stacked[key] = self._tensor(
-                torch.stack(values) if all(isinstance(v, torch.Tensor)
-                                           for v in values)
-                else np.stack([np.asarray(v) for v in values]))
+            stacked[key] = (torch.stack(values)
+                            if all(isinstance(v, torch.Tensor)
+                                   for v in values)
+                            else np.stack([np.asarray(v) for v in values]))
+        if self.mesh is not None:
+            stacked = meshlib.shard_batch(self.mesh, stacked, stacked=True)
+        stacked = {k: self._tensor(v) for k, v in stacked.items()}
         self.variables, self.opt_state, logs = self._multi(
             self.variables, self.opt_state, stacked, [lr for _, lr in buf])
         # tensors beside the scalars (the ft trainer's intermediates, of
@@ -360,7 +411,11 @@ class DartsFtTrainer(DartsTrainer):
     passes (darts_ft_model.py:194-201); finetune_proxies() fits each
     ft_target proxy to its target (the native op, or dct_denoise for bm3d)
     on those, at params drawn ~ U[0, 1), with one Adam per proxy.  omega is
-    shared by the slots, so one update reaches every slot."""
+    shared by the slots, so one update reaches every slot.  With a mesh the
+    memory holds the global batch's intermediates (gathered over the data
+    group), so every rank tunes the same proxies from the same draws; the
+    tuned proxies are then broadcast from the mesh's first rank, so that
+    the cards' rounding cannot set the ranks' omega apart."""
 
     def __init__(self, supernet: SuperNet, train_opt: dict,
                  proxy_ft_params: dict, **kw):
@@ -406,6 +461,10 @@ class DartsFtTrainer(DartsTrainer):
         none yet); before any step, those of a forward on `train_batch`."""
         mids = self._last_aux.pop("_mids", None)
         if mids is not None:
+            if self.group is not None:
+                # (K n_mids, rows of this rank, H, W, 3): the global batch
+                # in rank order, as the serial trainer records it
+                mids = meshlib.all_gather(mids, self.group, dim=1)
             self.ft_data.extend(mids.unbind(0))
         elif train_batch is not None and self.step_idx == 0:
             with torch.no_grad():
@@ -465,25 +524,31 @@ class DartsFtTrainer(DartsTrainer):
                 optimizer.step()
                 optimizer.zero_grad(set_to_none=True)
             logs[f"ft_{spec.name}"] = float(loss.detach())
+        if self.mesh is not None:
+            meshlib.replicate(self.mesh, {s.name: self.variables["omega"][
+                s.name] for s in self.ft_ops})
         return logs
 
 
 # ------------------------------------------------------------ run_training
 
-def dist_mesh(batch_size: int, device: torch.device) -> None:
-    """`dist: true`: the devices a data-parallel run would split the batch
-    over (the JAX package's dist_mesh, search/trainer.py:439-457).  With
-    one visible device, or a batch that no larger device count divides,
-    the run is serial, as in JAX, and this returns None; across devices it
-    raises, since data parallelism (DDP) is not ported yet."""
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    data = max(k for k in range(1, n + 1) if batch_size % k == 0)
-    if n == 1 or data == 1:
+def dist_mesh(batch_size: int):
+    """`dist: true`: the mesh a data-parallel run splits the global batch
+    over (the JAX package's dist_mesh, search/trainer.py:439-457).  None
+    (serial) without a process group of more than one rank, as JAX runs
+    serially on one device; else a (world, 1) mesh of every rank.  A batch
+    that the ranks do not divide raises ValueError naming the largest
+    divisor to launch with: JAX would take that many of its devices and
+    leave the others idle, and the port launches no rank it cannot use."""
+    world = meshlib.world_size()
+    if world == 1:
         return None
-    raise NotImplementedError(
-        f"dist: true over {data} devices: data-parallel training (DDP) is "
-        "not ported yet (ROADMAP.md, the item on parallel/mesh.py and "
-        "parallel/dp.py); make one device visible")
+    if batch_size % world:
+        fit = max(k for k in range(1, world + 1) if batch_size % k == 0)
+        raise ValueError(
+            f"dist: true: a batch of {batch_size} does not split over "
+            f"{world} ranks; launch {fit} ranks (--nproc-per-node {fit})")
+    return meshlib.make_mesh(world)
 
 
 def make_yolo_criterion(net, img_size: int, **loss_kw) -> Callable:
@@ -491,16 +556,18 @@ def make_yolo_criterion(net, img_size: int, **loss_kw) -> Callable:
     darts_yolo_model.py:130-137): BGR -> RGB before the detector, whose
     weights take no gradient (yolo/net.frozen), so the loss differentiates
     the ISP output alone.  `latency` is ignored, as the JAX package ignores
-    it: darts_yolo has no latency term.  loss_kw forwards obj_scale /
-    noobj_scale: match the balance the evaluator was trained with
-    (yolo/train.py)."""
+    it: darts_yolo has no latency term.  `group` (a data group) makes the
+    loss this rank's share of the global batch's (yolo/loss.py).  loss_kw
+    forwards obj_scale / noobj_scale: match the balance the evaluator was
+    trained with (yolo/train.py)."""
     from reconfigisp_tpu_torch.yolo.loss import yolo_loss
     from reconfigisp_tpu_torch.yolo.net import frozen
 
     frozen(net)
 
-    def criterion(pred_bgr, labels, latency=None, **kw):
-        return yolo_loss(net(pred_bgr.flip(-1)), labels, img_size, **loss_kw)
+    def criterion(pred_bgr, labels, latency=None, group=None, **kw):
+        return yolo_loss(net(pred_bgr.flip(-1)), labels, img_size,
+                         group=group, **loss_kw)
 
     return criterion
 
@@ -692,8 +759,15 @@ def run_training(opt: dict, *, max_iters: Optional[int] = None,
     train_ft.py; the JAX package's run_training) for models isp, darts,
     darts_ft and the detection-driven darts_yolo and isp_yolo -> a summary
     dict with the JAX package's keys.  Runs on `device`, else the options'
-    `device`, else cuda; raises without CUDA unless "cpu" is named.  Rank 0
-    of world 1 until DDP is ported."""
+    `device`, else cuda; raises without CUDA unless "cpu" is named.
+
+    In a process group (torchrun, parallel/mesh.init_process_group) every
+    rank runs this.  With `dist: true` the trainer takes dist_mesh's mesh;
+    every rank builds the same global batches from loaders at rank 0 of
+    world 1, as the JAX package's one process per host does, and the
+    trainer takes its rows, so the run equals the serial one.  Only rank 0
+    writes the log file and metrics, runs the probe and the trace, and
+    saves (the JAX package's main_proc)."""
     from reconfigisp_tpu_torch.data import create_dataset
 
     model = opt["model"] or ""
@@ -702,15 +776,18 @@ def run_training(opt: dict, *, max_iters: Optional[int] = None,
     dev = resolve_device(device if device is not None else opt.get("device"))
     name = opt.get("name", "run")
     paths = opt.get("path") or {}
+    main_proc = meshlib.is_main_process()
     # a fresh run archives an existing experiment dir (reference
     # train.py:85-90); resume (the default) continues in place
     resume = opt["train"].get("resume", True) if opt.get("train") else True
-    if not resume and paths.get("experiments_root"):
+    if not resume and paths.get("experiments_root") and main_proc:
         from reconfigisp_tpu_torch.utils.imaging import mkdir_and_rename
         mkdir_and_rename(paths["experiments_root"])
-    logger = setup_logger("base", paths.get("log"), f"train_{name}")
-    metrics = MetricsLogger(paths.get("log"),
-                            use_tb=bool(opt.get("use_tb_logger")))
+    if meshlib.world_size() > 1:
+        torch.distributed.barrier()  # no rank writes before the rename
+    log_dir = paths.get("log") if main_proc else None
+    logger = setup_logger("base", log_dir, f"train_{name}", screen=main_proc)
+    metrics = MetricsLogger(log_dir, use_tb=bool(opt.get("use_tb_logger")))
 
     train_opt = opt["train"]
     niter = int(max_iters or train_opt.get("niter", 100))
@@ -721,18 +798,22 @@ def run_training(opt: dict, *, max_iters: Optional[int] = None,
     dataset_opt.setdefault("seed", seed)
     dataset = create_dataset(dataset_opt)
     batch_size = dataset_opt.get("batch_size", 4) or 4
-    if opt.get("dist"):
-        dist_mesh(batch_size, dev)
+    mesh = dist_mesh(batch_size) if opt.get("dist") else None
 
-    # the measured per-op latency table, installed before any net reads it
+    # the measured per-op latency table, installed before any net reads it;
+    # rank 0's on every rank, whose own timings would differ
     if train_opt.get("calibrate_latency"):
         from reconfigisp_tpu_torch.utils import latency as latlib
-        table = latlib.calibrate(
+        table = [latlib.calibrate(
             size=int(train_opt.get("latency_calib_size") or 256), device=dev)
+            if main_proc else None]
+        if meshlib.world_size() > 1:
+            torch.distributed.broadcast_object_list(table, src=0)
+        table = table[0]
         latlib.install(table)
         logger.info("installed measured latency table: " + ", ".join(
             f"{k}={v:.3f}" for k, v in sorted(table.items())))
-        if paths.get("experiments_root"):
+        if paths.get("experiments_root") and main_proc:
             os.makedirs(paths["experiments_root"], exist_ok=True)
             with open(os.path.join(paths["experiments_root"],
                                    "latency_table.json"), "w") as f:
@@ -750,14 +831,16 @@ def run_training(opt: dict, *, max_iters: Optional[int] = None,
     run = _run_search if model.startswith("darts") else _run_isp
     trainer, summary = run(opt, dataset, batch_size, niter, seed, generator,
                            dev, resume, logger, metrics,
-                           criterion=criterion, target_key=target_key)
+                           criterion=criterion, target_key=target_key,
+                           mesh=mesh, main_proc=main_proc)
     metrics.close()
     summary["steps"] = trainer.step_idx
     return summary
 
 
 def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
-                resume, logger, metrics, *, criterion, target_key):
+                resume, logger, metrics, *, criterion, target_key, mesh,
+                main_proc):
     """The darts, darts_ft and darts_yolo branch of run_training."""
     from reconfigisp_tpu_torch import config
     from reconfigisp_tpu_torch.data import create_search_loaders
@@ -769,10 +852,11 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
     if opt["model"] == "darts_ft":
         trainer = DartsFtTrainer(net, train_opt,
                                  opt.get("proxy_ft_params") or {},
-                                 generator=generator)
+                                 generator=generator, mesh=mesh)
     else:
         trainer = DartsTrainer(net, train_opt, generator=generator,
-                               criterion=criterion, target_key=target_key)
+                               criterion=criterion, target_key=target_key,
+                               mesh=mesh)
 
     # resume if a training state exists
     start_epoch = 0
@@ -798,8 +882,9 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
                 f"pretrain_proxies checkpoint covers no weights for "
                 f"{missing}: those modules enter the search untrained")
 
-    # rank 0 of world 1; a resumed run restarts the samplers at the saved
-    # epoch, as the JAX package's does
+    # rank 0 of world 1 on every rank (the global batch; a mesh takes its
+    # rows); a resumed run restarts the samplers at the saved epoch, as the
+    # JAX package's does
     train_loader, val_loader = create_search_loaders(
         dataset, batch_size, seed=seed, start_epoch=start_epoch)
     per_epoch_steps = max(train_loader.sampler.per_epoch_len // batch_size, 1)
@@ -812,9 +897,10 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
     print_freq = logger_opt.get("print_freq", 10)
     save_freq = logger_opt.get("save_checkpoint_freq")
     val_freq = logger_opt.get("val_freq")
+    # every rank draws the probe's samples, so the crop counters stay equal
     probe = _make_val_probe(opt, dataset, trainer,
                             is_yolo=target_key == "label")
-    trace = _Trace(train_opt.get("trace_steps"),
+    trace = _Trace(train_opt.get("trace_steps") if main_proc else None,
                    os.path.join(paths.get("experiments_root") or ".", "trace"),
                    dev, logger)
     # the checkpointed last metrics: a run that resumes complete runs no
@@ -843,7 +929,7 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
             val_hist.append(float(logs["val_loss"]))
         if first_loss is None and np.isfinite(logs.get("loss", np.nan)):
             first_loss = float(logs["loss"])
-        if trainer.step_idx % print_freq == 0:
+        if trainer.step_idx % print_freq == 0 and main_proc:
             dt = (time.time() - t0) / print_freq
             # pruned-path counts (reference train.py:286-287)
             pruned = trainer.pruned_paths(tb["noisy"][:1])
@@ -860,13 +946,15 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
                 alpha_logs[f"pruned/{s}"] = float(cnt)
             metrics.scalars(trainer.step_idx, {**logs, **alpha_logs})
             t0 = time.time()
-        if val_freq and trainer.step_idx % int(val_freq) == 0:
+        if val_freq and trainer.step_idx % int(val_freq) == 0 and main_proc:
             logs.update(probe(trainer.step_idx))
             t0 = time.time()
         if save_freq and trainer.step_idx % int(save_freq) == 0 \
                 and paths.get("models"):
-            trainer.save(paths["models"], paths["training_state"],
-                         cur_epoch())
+            trainer.flush()  # on every rank: a dispatch is collective
+            if main_proc:
+                trainer.save(paths["models"], paths["training_state"],
+                             cur_epoch())
     arch = trainer.architecture()
     logger.info(f"final architecture: {arch}")
     summary = {"architecture": arch, **logs,
@@ -877,13 +965,13 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
                **_alpha_gap_summary(trainer.variables["alphas"])}
     if first_loss is not None:
         summary["loss_first"] = first_loss
-    if paths.get("models"):
+    if paths.get("models") and main_proc:
         trainer.save(paths["models"], paths["training_state"], cur_epoch())
     return trainer, summary
 
 
 def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
-             logger, metrics, *, criterion, target_key):
+             logger, metrics, *, criterion, target_key, mesh, main_proc):
     """The isp and isp_yolo branch of run_training: step-2 training of a
     fixed pipeline."""
     from reconfigisp_tpu_torch.config import network_uses_proxy
@@ -898,7 +986,8 @@ def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
                     generator=generator)
     trainer = IspTrainer(pipe, train_opt,
                          train_weights=bool(train_opt.get("train_weights")),
-                         criterion=criterion, target_key=target_key)
+                         criterion=criterion, target_key=target_key,
+                         mesh=mesh)
     # pretrained module weights: the shared bank, then per-step overrides
     # (reference isp_universal.py:169-176)
     if paths.get("pretrain_proxies"):
@@ -933,9 +1022,10 @@ def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
     val_freq = logger_opt.get("val_freq")
     probe = _make_val_probe(opt, dataset, trainer,
                             is_yolo=target_key == "label")
-    # the same fixed samples scored before and after training
+    # the same fixed samples scored before and after training (every rank
+    # draws them, rank 0 scores them)
     start_probe = {f"{k}_start": v for k, v in probe(0).items()
-                   if k in ("probe_loss", "val_psnr")}
+                   if k in ("probe_loss", "val_psnr")} if main_proc else {}
     logs = dict(trainer.last_logs)
     iter_times = []
     first_loss = None
@@ -951,17 +1041,17 @@ def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
             loss_hist.append(float(logs["loss"]))
         if first_loss is None and np.isfinite(logs.get("loss", np.nan)):
             first_loss = float(logs["loss"])
-        if trainer.step_idx % print_freq == 0:
+        if trainer.step_idx % print_freq == 0 and main_proc:
             dt = (time.time() - t0) / print_freq
             logger.info(f"iter {trainer.step_idx:8,d} "
                         f"loss {logs['loss']:.4e} ({dt:.3f}s/iter)")
             metrics.scalars(trainer.step_idx, logs)
             t0 = time.time()
-        if val_freq and trainer.step_idx % int(val_freq) == 0:
+        if val_freq and trainer.step_idx % int(val_freq) == 0 and main_proc:
             logs.update(probe(trainer.step_idx))
             t0 = time.time()
         if save_freq and trainer.step_idx % int(save_freq) == 0 \
-                and paths.get("models"):
+                and paths.get("models") and main_proc:
             trainer.save(paths["models"], paths["training_state"],
                          cur_epoch())
     summary = dict(logs)
@@ -971,9 +1061,10 @@ def _run_isp(opt, dataset, batch_size, niter, seed, generator, dev, resume,
         summary["loss_first"] = first_loss
     summary.update(_loss_window_summary(loss_hist))
     summary.update(start_probe)
-    summary.update({f"{k}_final": v for k, v in
-                    probe(trainer.step_idx).items()
-                    if k in ("probe_loss", "val_psnr")})
-    if paths.get("models"):
+    if main_proc:
+        summary.update({f"{k}_final": v for k, v in
+                        probe(trainer.step_idx).items()
+                        if k in ("probe_loss", "val_psnr")})
+    if paths.get("models") and main_proc:
         trainer.save(paths["models"], paths["training_state"], cur_epoch())
     return trainer, summary

@@ -15,6 +15,12 @@ only if it is valid and no later valid row of its image has the same
 (anchor, gj, gi); the others go to one spare slot past the grid, which is
 cut off after the write.  Writes of a constant (objectness 1, the class's 1,
 the ignore mask's 0) need no such rule.
+
+Under a data group (`group=`) the loss is this rank's additive share of the
+global batch's: the object count that normalises every term, and the gate
+of a batch with no box, are the whole batch's, summed over the group
+without gradient (utils/losses.global_count), so the shares add up to the
+loss of the whole batch.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from reconfigisp_tpu_torch.utils.losses import global_count
 
 
 _ANCHORS = {}   # (anchors, stride, device) -> _anchors_per_cell
@@ -165,10 +173,11 @@ def _bce(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 def yolo_head_loss(head: torch.Tensor, anchors, labels: torch.Tensor,
                    img_size: int, *, obj_scale: float = 1.0,
                    noobj_scale: float = 100.0,
-                   ignore_thres: float = 0.5) -> torch.Tensor:
+                   ignore_thres: float = 0.5, group=None) -> torch.Tensor:
     """Multi-part loss of one scale (reference yolo_v3_net.py:196-205): MSE
     on x/y/w/h at object cells, BCE on objectness (obj + scaled noobj), BCE
-    on class probabilities; objectness alone where the batch has no box."""
+    on class probabilities; objectness alone where the batch has no box.
+    With a data group, this rank's share (module docstring)."""
     _, _, gh, gw, f = head.shape
     stride = img_size / gh
     anchors_grid = _anchors_per_cell(anchors, stride, head.device)
@@ -178,7 +187,8 @@ def yolo_head_loss(head: torch.Tensor, anchors, labels: torch.Tensor,
     py = torch.sigmoid(head[..., 1])
     pw, ph = head[..., 2], head[..., 3]
     obj, noobj = t["obj"], t["noobj"]
-    n_obj = torch.clamp(torch.sum(obj), min=1.0)
+    count = global_count(torch.sum(obj), group)
+    n_obj = torch.clamp(count, min=1.0)
 
     loss_x = torch.sum(obj * (px - t["tx"]) ** 2) / n_obj
     loss_y = torch.sum(obj * (py - t["ty"]) ** 2) / n_obj
@@ -192,7 +202,7 @@ def yolo_head_loss(head: torch.Tensor, anchors, labels: torch.Tensor,
 
     # the guard of a batch with no box (reference
     # darts_yolo_model.py:147-152): a where, so its gradient is JAX's
-    has_obj = torch.sum(obj) > 0
+    has_obj = count > 0
     total = loss_x + loss_y + loss_w + loss_h + loss_conf + loss_cls
     return torch.where(has_obj, total, loss_conf)
 

@@ -171,19 +171,23 @@ def test_each_loader_rejects_the_others_magic(pairs, jax_flagship_artifact):
         jdeploy.load_pipeline(pairs[FLAGSHIP][3])
 
 
-def test_mesh_raises(pairs, monkeypatch):
-    """A mesh with patch, or over more devices than there are: ValueError,
-    as in the JAX package; a mesh the devices allow: NotImplementedError
-    that names the mesh item of ROADMAP.md."""
+def test_mesh_raises(pairs):
+    """A mesh with patch: ValueError, as in the JAX package; a space axis
+    on whole frames: NotImplementedError that names its ROADMAP.md item; a
+    data-parallel artifact loaded without a group of as many ranks:
+    ValueError with the JAX package's message (a rank for a device).
+    Serving it over two ranks: tests/test_torch_dp.py."""
     pt = pairs[FLAGSHIP][2]
     with pytest.raises(ValueError, match="whole-frame only"):
         deploy.export_pipeline(pt, SHAPE, data_parallel=2, **TILING)
-    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+    with pytest.raises(NotImplementedError, match="whole-frame space axis"):
         deploy.export_pipeline(pt, SHAPE, space_parallel=2)
-    monkeypatch.setattr(pt, "device", torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+    with pytest.raises(NotImplementedError, match="whole-frame space axis"):
         deploy.export_pipeline(pt, SHAPE, data_parallel=2, space_parallel=2)
+    blob = deploy.export_pipeline(pt, (2,) + tuple(SHAPE[1:]),
+                                  data_parallel=2)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        deploy.load_pipeline(blob, device="cpu")
 
 
 def _run(code, env=None, timeout=240):

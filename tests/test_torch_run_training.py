@@ -255,7 +255,7 @@ def test_helpers():
     assert gaps["alpha_gap_max"] == gaps["alpha_top_minus_median"]["b"] > 0.5
     assert _probe_access_slack({"logger": {"val_freq": 5}}, 12) == 2 * 3
     assert _probe_access_slack({}, 12) == 2
-    assert dist_mesh(4, torch.device("cpu")) is None
+    assert dist_mesh(4) is None  # no process group: serial
 
 
 @pytest.mark.parametrize("model,match", [("nope", "unknown model")])
