@@ -95,7 +95,7 @@ Phases, one line each:
      each step as a replay of one captured CUDA graph (their launches
      counted through the replays); here each captured run is held against
      eager steps (make_darts_step) from one start on the same batches:
-     (a) SID_search order 2, 8 steps eager, captured at K = 1 and at K = 4
+     (a) SID_search order 2, 6 steps eager, captured at K = 1 and at K = 4
      steps a dispatch, ms a step, the capture's seconds and pool, and one
      captured step under torch.profiler (busy share, kernels a replay);
      (b) order 1 at planted_search.yaml's rates; (c) DartsFtTrainer at
@@ -118,7 +118,21 @@ Phases, one line each:
      captured graph, at K = 1 and 2 against the trainer without a mesh;
      (e) python -m torch.distributed.run --nproc-per-node 2 over the train
      CLI on phase 9's records against 9c's serial run, the checkpoint
-     saved by rank 0 alone.
+     saved by rank 0 alone;
+ 14. the mesh's space axis on whole frames (parallel/space.py: each rank
+     runs a window of its frames' rows with the network's row radius on
+     each side, the global ops reduced over the space group), in phase
+     13's spawn of two gloo ranks over a (1, 2) mesh, each run held
+     against the unsharded run on the same inputs, launches counted on
+     each rank: (a) two 2848x4256 frames from seed 0 served by
+     make_data_parallel_apply through slice 1, slice 2 and a pipeline of
+     every global op (SPACE_GLOBAL), against the whole-frame
+     make_serving_fn; (b) slice 2 exported with data_parallel=1,
+     space_parallel=2 at 1x2848x4256x1, loaded and served by both ranks;
+     (c) configs/SID_search.yaml as written, 3 order-2 steps against 13b's
+     serial run, and configs/SID_isp.yaml's slice 2, 3 steps against
+     13d's; (d) dryrun_multichip over four gloo ranks on the card, a
+     (2, 2) mesh.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -162,6 +176,8 @@ from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.parallel import launch
 from reconfigisp_tpu_torch.parallel import mesh as meshlib
+from reconfigisp_tpu_torch.parallel import space
+from reconfigisp_tpu_torch.parallel.dp import make_data_parallel_apply
 from reconfigisp_tpu_torch.parallel.dryrun import dryrun_multichip
 from reconfigisp_tpu_torch.parallel.tiling import feather_mask, tile_positions
 from reconfigisp_tpu_torch.ops import color, demosaic, denoise
@@ -1644,11 +1660,11 @@ YOLO_TEST = ROOT / "configs" / "yolo_test.yaml"
 # in place of the OnePlus folders (YOLO_FRAMES for the search, the batch for
 # training, YOLO_TEST_FRAMES for evaluation); the port's seeded YOLOv3 init,
 # written as a darknet file, in place of yolov3.weights; steps: the search
-# 3 then resumed to 4 of 40,000 through train.py and 3 in process, training
-# 4 of 8,000.
+# 3 then resumed to 4 of 40,000 through train.py and 2 in process (cut from
+# 3 when phase 14 came, to hold the script's time), training 4 of 8,000.
 YOLO_FRAMES = 16
 YOLO_SEARCH_STEPS, YOLO_SEARCH_RESUMED = 3, 4
-YOLO_INPROC_STEPS = 3
+YOLO_INPROC_STEPS = 2
 YOLO_ISP_STEPS = 4
 YOLO_TEST_FRAMES = 4
 YOLO_CARD_SHAPE = (1, 256, 256, 3)
@@ -1672,7 +1688,7 @@ YOLO_CARD_RTOL = 1e-4
 #    out, so it moves by far less than 1e-5 of itself; YOLO_LOSS_RTOL 1e-5.
 #  * Alphas: as phase 8, Adam moves an alpha by lr times a ratio of moments
 #    that a relative gradient error e of about 1e-4 moves by about e: 3 steps
-#    at lr 1e-4 part them by about 3e-8; YOLO_ALPHA_TOL 1e-5.
+#    (now 2) at lr 1e-4 part them by about 3e-8; YOLO_ALPHA_TOL 1e-5.
 #  * Theta: SGD moves theta by lr times the gradient, which the detection
 #    loss makes large (of order 1e3-1e4, against about 1 for phase 8's l2),
 #    so the parting scales with the move: e of it, 1e-4; held to
@@ -2341,8 +2357,8 @@ def phase_deployment(dev, bank) -> dict:
 # SID_search's 200,000, ORDER1_DISPATCH_STEPS of planted_search's 1,500,
 # 2 + 2 of planted_search_ft's with one tuning round between, and
 # YOLO_INPROC_STEPS of yolo_search's 40,000; the geometry is the configs'.
-DISPATCH_STEPS = 8           # 12a: steps per run
-DISPATCH_TIMED_FROM = 2      # 12a: steps 3-8 timed (eager and K = 1)
+DISPATCH_STEPS = 6           # 12a: steps per run (8 until phase 14 came)
+DISPATCH_TIMED_FROM = 2      # 12a: steps 3-6 timed (eager and K = 1)
 DISPATCH_K = 4               # 12a: steps a dispatch of the K-step run
 ORDER1_DISPATCH_STEPS = 4    # 12b
 FT_DISPATCH_STEPS = 2        # 12c: steps before and after finetune_proxies
@@ -2539,8 +2555,8 @@ def phase_dispatch_sid(dev, bank) -> dict:
                 name: 15 for name in KERNELS}:
             raise AssertionError(f"captured K={k}: launches {run['launches']}"
                                  f", a replay {graph.launches}")
-        # K = 1 logs every step; K = 4 returns step 4's logs at steps 4-7
-        # and step 8's after the flush
+        # K = 1 logs every step; K = 4 returns step 4's logs at steps 4-5
+        # and step 6's after the flush
         if k == 1:
             got_logs, ref_logs = run["logs"], ref["logs"]
         else:
@@ -2814,6 +2830,9 @@ def _dp_rank(rank: int, root: str) -> None:
     out["artifact"] = {"diff": float((y - want).abs().max()),
                        "shape": tuple(y.shape), "launches": _counts(),
                        "s": time.perf_counter() - t0}
+    del served, frames, want, y
+    torch.cuda.empty_cache()
+    out["space"] = _space_rank(dev, tmp, inputs, bank)
     torch.save(out, tmp / f"dp_rank{rank}.pt")
 
 
@@ -2907,6 +2926,13 @@ def _dp_inputs(dev, bank, tmp: Path) -> dict:
     np.save(tmp / "frames.npy", frames.cpu().numpy())
     np.save(tmp / "served.npy", make_serving_fn(pipe, device=dev)(
         frames).cpu().numpy())
+    t0 = time.perf_counter()
+    slice2 = load_pipeline(dev, SLICE2, bank=bank)
+    blob = export_pipeline(slice2, (1, *FRAME, 1), data_parallel=1,
+                           space_parallel=SPACE_WORLD)
+    save_artifact(str(tmp / "space2.rispt"), blob)
+    export_s = time.perf_counter() - t0
+    del slice2
 
     torch.save({"search": _to(pairs, "cpu"),
                 "isp": _to(batch, "cpu"), "yolo": _to(ypairs, "cpu"),
@@ -2917,7 +2943,8 @@ def _dp_inputs(dev, bank, tmp: Path) -> dict:
     torch.cuda.empty_cache()
     return {"search": search, "isp": isp, "yolo": yolo,
             "batch": tuple(pairs[0][0]["noisy"].shape),
-            "yolo_batch": tuple(ypairs[0][0]["noisy"].shape)}
+            "yolo_batch": tuple(ypairs[0][0]["noisy"].shape),
+            "space_export": {"s": export_s, "mb": len(blob) / 1e6}}
 
 
 def phase_dp_ranks(dev, bank, tmp: Path) -> tuple:
@@ -2993,7 +3020,7 @@ def phase_dp_ranks(dev, bank, tmp: Path) -> tuple:
                             + art["launches"][name])
     line("phase 13 ranks", world=DP_WORLD, serial_runs_s=f"{prep_s:.1f}",
          ranks_s=f"{ranks_s:.1f}")
-    return total, ref["search"]["ms"]
+    return total, ref["search"]["ms"], (ranks, ref)
 
 
 def phase_dp_nccl(tmp: Path, serial_ms: float, phase12_ms: float) -> dict:
@@ -3088,13 +3115,197 @@ def phase_data_parallel(dev, bank, tmp: Path, phase12_ms: float) -> dict:
         return out
 
     dry = timed(phase_dp_dryrun)
-    ranks, serial_ms = timed(phase_dp_ranks, dev, bank, tmp)
+    ranks, serial_ms, space_runs = timed(phase_dp_ranks, dev, bank, tmp)
     nccl = timed(phase_dp_nccl, tmp, serial_ms, phase12_ms)
     cli = timed(phase_dp_cli, tmp)
     total = {name: sum(p[name] for p in (dry, ranks, nccl, cli))
              for name in KERNELS}
     line("phase 13 launches", ranks=json.dumps(total).replace(" ", ""),
          seconds="/".join(seconds), nvidia_smi=repr(nvidia_smi(dev.index or 0)))
+    return total, space_runs
+
+
+SPACE_WORLD = 2      # 14a-14c: a (1, 2) mesh over phase 13's two ranks
+SPACE_DRYRUN_WORLD = 4
+# every global op: the conditional gamma (first, so that its histogram is of
+# the demosaic's output, the same on a window as on the frame), grayworld,
+# whiteworld, reinhard
+SPACE_GLOBAL = "Bayer_02_Demosaic_03_sRGB_16_05_06_02"
+SPACE_APPLY = (SLICE1, SLICE2, SPACE_GLOBAL)
+# A window against the whole frame, served: the same ops on the same rows,
+# but each rank's convolutions run at the window's height, where cuDNN may
+# choose other algorithms (rounding only, as ZOO_TOL's card against the
+# CPU), and the global ops' sums run over each rank's owned rows and then
+# across the group (1e-7 relative); the median and the quantile select
+# among values that moved by that much.  So ZOO_TOL, as ARTIFACT_TOL.
+SPACE_TOL = 1e-4
+
+
+def _space_rank(dev, tmp: Path, inputs: dict, bank) -> dict:
+    """14a-14c on this rank over a (1, 2) mesh of phase 13's two ranks,
+    each run's counts set to 0 just before it and read just after; the
+    unsharded runs on this rank alone."""
+    start = time.perf_counter()
+    mesh = meshlib.make_mesh(SPACE_WORLD, space=SPACE_WORLD)
+    frames = make_frames(dev)
+    out = {"mesh": tuple(mesh.shape), "apply": {}}
+
+    def served_by(fn, x):
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        return y, _counts(), time.perf_counter() - t0
+
+    def held(y, want, launches, s, **extra):
+        return {"diff": float((y - want).abs().max()), "shape": tuple(y.shape),
+                "finite": bool(torch.isfinite(y).all()),
+                "range": (float(y.min()), float(y.max())),
+                "launches": launches, "s": s, **extra}
+
+    slice2 = None
+    for arch in SPACE_APPLY:
+        pipe = load_pipeline(dev, arch, bank=bank)
+        halo = space.radius(pipe)
+        apply = make_data_parallel_apply(lambda v, x: pipe(x), mesh,
+                                         halo=halo)
+        with torch.inference_mode():
+            y, launches, s = served_by(lambda x: apply(None, x), frames)
+        want, _, whole_s = served_by(make_serving_fn(pipe, device=dev),
+                                     frames)
+        out["apply"][arch] = held(
+            y, want, launches, s, whole_s=whole_s, halo=halo,
+            window=space.window(FRAME[0], 0, SPACE_WORLD, halo).rows)
+        if arch == SLICE2:
+            slice2 = pipe
+        del y, want
+    torch.cuda.empty_cache()
+
+    served = load_artifact(str(tmp / "space2.rispt"), device=dev)
+    y, launches, s = served_by(served, frames[:1])
+    want = make_serving_fn(slice2, device=dev)(frames[:1])
+    out["artifact"] = held(y, want, launches, s, meta=served.meta)
+    del served, y, want, frames, slice2
+    torch.cuda.empty_cache()
+
+    opt = search_options(SID_SEARCH)
+    trainer = make_search_trainer(dev, bank, opt, mesh=mesh)
+    run = _captured_steps(trainer, _to(inputs["search"], dev), timed_from=1)
+    out["search"] = {"logs": run["logs"], "launches": run["launches"],
+                     "ms": run["ms"], "eager": trainer.graph is None,
+                     "window": trainer.space.window(
+                         opt["datasets"]["train"]["data_size"]).rows,
+                     "state": _state_out(trainer)}
+    _, use_proxy, train_opt, _, _ = sid_isp_options()
+    trainer = make_trainer(dev, SLICE2, use_proxy, bank, train_opt, mesh=mesh)
+    batch = _to(inputs["isp"], dev)
+    run = _train_run(trainer, batch, DP_ISP_STEPS, 1)
+    out["isp"] = {k: run[k] for k in ("losses", "logits", "launches", "ms")}
+    out["isp"]["window"] = trainer.space.window(batch["noisy"].shape[1]).rows
+    out["s"] = time.perf_counter() - start
+    return out
+
+
+def phase_space(dev, ranks: list, ref: dict) -> dict:
+    """Phase 14: 14a-14c as the ranks of phase 13's spawn ran them, each
+    held against its unsharded run; then 14d.  -> the kernels' launches
+    on every rank."""
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNELS}
+    for r, got in enumerate(ranks):
+        sp = got["space"]
+        if sp["mesh"] != (1, SPACE_WORLD):
+            raise AssertionError(f"rank {r}: mesh {sp['mesh']}")
+        for arch, run in sp["apply"].items():
+            share = 2 * run["halo"] / (FRAME[0] / SPACE_WORLD)
+            line("phase 14a space apply", rank=r, arch=arch,
+                 mesh=sp["mesh"], frames=(2, *FRAME, 1), halo=run["halo"],
+                 window_rows=run["window"], halo_share=f"{share:.4f}",
+                 max_abs_diff=f"{run['diff']:.3e}", tol=SPACE_TOL,
+                 s=f"{run['s']:.3f}", whole_frame_s=f"{run['whole_s']:.3f}",
+                 launches=json.dumps(run["launches"]).replace(" ", ""))
+            expected = {name: 1 if name in PATHS.get(arch, ()) else 0
+                        for name in KERNELS}
+            lo, hi = run["range"]
+            if not (run["diff"] <= SPACE_TOL and run["finite"]
+                    and 0.0 <= lo and hi <= 1.0
+                    and run["shape"] == (2, *FRAME, 3)
+                    and run["launches"] == expected):
+                raise AssertionError(f"14a {arch} rank {r}: {run}")
+        art = sp["artifact"]
+        line("phase 14b space artifact", rank=r, arch=SLICE2,
+             mesh=json.dumps(art["meta"]["mesh"]).replace(" ", ""),
+             halo=art["meta"]["halo"], out=art["shape"],
+             max_abs_diff=f"{art['diff']:.3e}", tol=SPACE_TOL,
+             export_s=f"{ref['space_export']['s']:.1f}",
+             mb=f"{ref['space_export']['mb']:.2f}",
+             first_call_s=f"{art['s']:.2f}",
+             launches=json.dumps(art["launches"]).replace(" ", ""))
+        if not (art["diff"] <= SPACE_TOL and art["finite"]
+                and art["shape"] == (1, *FRAME, 3)
+                and art["meta"]["mesh"] == {"data": 1, "space": SPACE_WORLD}
+                and art["launches"] == {"bilateral": 0, "median": 1,
+                                        "fastnlm": 1}):
+            raise AssertionError(f"14b rank {r}: {art}")
+
+        search = sp["search"]
+        line("phase 14c SID_search", rank=r, mesh=sp["mesh"],
+             eager=search["eager"], window_rows=search["window"],
+             batch=ref["batch"], steps=DP_SEARCH_STEPS,
+             ms_per_step=f"{search['ms']:.3f}",
+             serial_captured_ms_per_step=f"{ref['search']['ms']:.3f}",
+             launches=json.dumps(search["launches"]).replace(" ", ""))
+        _hold_dispatch(f"14c SID_search rank {r}",
+                       types.SimpleNamespace(**search["state"]),
+                       types.SimpleNamespace(**ref["search"]["state"]),
+                       search["logs"], ref["search"]["logs"],
+                       phase="phase 14c space mesh vs serial")
+        if not search["eager"] or search["launches"] != {
+                name: 15 * DP_SEARCH_STEPS for name in KERNELS}:
+            raise AssertionError(f"14c rank {r}: {search['launches']}")
+        isp = sp["isp"]
+        loss = max(abs(a - b) / abs(b) for a, b in zip(
+            isp["losses"], ref["isp"]["losses"]))
+        logit = max(float(np.abs(isp["logits"][k] - v).max())
+                    for k, v in ref["isp"]["logits"].items())
+        line("phase 14c SID_isp", rank=r, arch=SLICE2, mesh=sp["mesh"],
+             window_rows=isp["window"], steps=DP_ISP_STEPS,
+             ms_per_step=f"{isp['ms']:.3f}",
+             serial_ms_per_step=f"{ref['isp']['ms']:.3f}",
+             max_loss_rel_diff=f"{loss:.3e}", loss_rtol=TRAIN_LOSS_RTOL,
+             max_logit_diff=f"{logit:.3e}", logit_tol=TRAIN_LOGIT_TOL,
+             launches=json.dumps(isp["launches"]).replace(" ", ""))
+        if not (loss <= TRAIN_LOSS_RTOL and logit <= TRAIN_LOGIT_TOL) \
+                or isp["launches"] != {"bilateral": 0, "median": DP_ISP_STEPS,
+                                       "fastnlm": DP_ISP_STEPS}:
+            raise AssertionError(f"14c SID_isp rank {r}")
+        for name in KERNELS:
+            total[name] += (sum(run["launches"][name]
+                                for run in sp["apply"].values())
+                            + art["launches"][name]
+                            + search["launches"][name]
+                            + isp["launches"][name])
+    reported_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(SPACE_DRYRUN_WORLD, "cuda")
+    dry = [r[-1] for r in out["launches"]]
+    dry_s = time.perf_counter() - t0
+    line("phase 14d dryrun_multichip", world=SPACE_DRYRUN_WORLD,
+         backend="gloo", mesh=json.dumps(out["mesh"]).replace(" ", ""),
+         checks=" | ".join(out["lines"]).replace(" ", "_"),
+         rank_launches=json.dumps(dry).replace(" ", ""),
+         seconds=f"{dry_s:.1f}")
+    if out["mesh"] != {"data": 2, "space": 2} or any(
+            r != {"bilateral": 5, "median": 0, "fastnlm": 0} for r in dry):
+        raise AssertionError(f"14d dry run: {out['mesh']} {dry}")
+    for name in KERNELS:
+        total[name] += sum(r[name] for r in dry)
+    line("phase 14 launches", ranks=json.dumps(total).replace(" ", ""),
+         ranks_s="/".join(f"{got['space']['s']:.1f}" for got in ranks),
+         report_s=f"{reported_s:.1f}", dryrun_s=f"{dry_s:.1f}",
+         nvidia_smi=repr(nvidia_smi(dev.index or 0)))
     return total
 
 
@@ -3130,7 +3341,9 @@ def main() -> int:
         yolo_launches = phase_yolo(dev, bank)
         artifact_launches = phase_deployment(dev, bank)
         graph_launches, dispatch_ms = phase_dispatch(dev, bank)
-        dp_launches = phase_data_parallel(dev, bank, tmp, dispatch_ms)
+        dp_launches, space_runs = phase_data_parallel(dev, bank, tmp,
+                                                      dispatch_ms)
+        space_launches = phase_space(dev, *space_runs)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -3144,6 +3357,7 @@ def main() -> int:
         "artifact_launches": artifact_launches[name],
         "graph_launches": graph_launches[name],
         "dp_launches": dp_launches[name],
+        "space_launches": space_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,22 +16,27 @@ place of the JAX package's StableHLO:
   * the program runs on the card (the kernels) or on the CPU (their plain
     forms); `load_pipeline` moves it to the device it is asked for, cuda
     unless the caller names the CPU;
-  * a data-parallel artifact (`data_parallel=d`, whole-frame) holds the
-    program of one rank's rows, N / d of the served batch; loaded in a
-    process group of at least d ranks (parallel/mesh.py), each rank serves
-    its rows and the output is gathered back to the whole batch.  A space
-    axis on whole frames waits for halo exchanges (ROADMAP.md, the item on
-    the whole-frame space axis).
+  * a mesh artifact (`data_parallel=d`, `space_parallel=s`, whole-frame)
+    holds the program of one rank's share: N / d images of the served
+    batch and, for s > 1, the common window height of the space axis
+    (parallel/space.py: the owned rows and the pipeline's row radius on
+    each side), with the global ops' reductions as the custom ops
+    reconfigisp::space_sum and ::space_rows; loaded in a process group of
+    at least d s ranks (parallel/mesh.py), each rank runs its window under
+    the space context, keeps its owned rows, and the output is gathered
+    over space and then over data back to the whole batch.
 
 Artifact layout: the magic MAGIC (the JAX package's is RISPTPU1, so each
 loader refuses the other's artifact), uint32 little-endian header length, a
 UTF-8 JSON header with the JAX package's keys (version, architecture,
 use_proxy, input_shape, dtype, patch, stride, chunk, cnn_storage, mesh,
-platforms), then the torch.export.save bytes.
+platforms; a space-parallel artifact adds halo, the pipeline's row
+radius), then the torch.export.save bytes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import struct
@@ -46,6 +51,7 @@ from reconfigisp_tpu_torch.device import resolve_device
 # the custom ops a serving program calls, registered on import
 from reconfigisp_tpu_torch.ops.kernels import bilateral, fastnlm, median  # noqa: F401
 from reconfigisp_tpu_torch.parallel import mesh as meshlib
+from reconfigisp_tpu_torch.parallel import space as spacelib
 from reconfigisp_tpu_torch.parallel.tiling import tiled_apply
 
 MAGIC = b"RISPTOR1"
@@ -93,20 +99,14 @@ def make_serving_fn(pipe, *, patch: Optional[int] = None,
 
 
 def _check_mesh(data: int, space: int):
-    """A (data x space) mesh baked into an artifact: data parallelism over
-    a process group of at least `data` ranks (the JAX package's check, a
-    rank for a device) -> the mesh.  space > 1 on a whole frame raises:
-    the port has no halo exchange yet."""
-    if space > 1:
-        raise NotImplementedError(
-            f"mesh data={data} x space={space}: the space axis on whole "
-            "frames is not ported (ROADMAP.md, the item on the whole-frame "
-            "space axis); export with space_parallel = 1")
+    """A (data x space) mesh baked into an artifact over a process group
+    of at least data x space ranks (the JAX package's check, a rank for a
+    device) -> the mesh."""
     have = meshlib.world_size()
-    if have < data:
+    if have < data * space:
         raise ValueError(f"mesh data={data} x space={space} needs "
                          f"{data * space} devices, have {have}")
-    return meshlib.make_mesh(data)
+    return meshlib.make_mesh(data * space, space=space)
 
 
 def _platform_names(platforms: Optional[Sequence[str]]) -> list:
@@ -137,11 +137,14 @@ def export_pipeline(pipe, input_shape: Sequence, *,
     exported symbolic (torch.export.Dim) and one artifact serves any batch
     size; the tiled engine needs a concrete batch.  The trace runs on the
     pipeline's device.  storage: CNN storage applied at trace time ('f32' or
-    'bf16'; None = the active policy).  data_parallel = d > 1 (whole-frame)
-    records the mesh {"data": d, "space": 1} and exports the program of one
-    rank's N / d rows; it needs no process group here, and the loader needs
-    one of d ranks.  space_parallel > 1 raises NotImplementedError.
-    platforms: where the artifact may be loaded,
+    'bf16'; None = the active policy).  data_parallel = d and
+    space_parallel = s, not both 1 (whole-frame), record the mesh
+    {"data": d, "space": s} and export the program of one rank's share:
+    N / d images and, for s > 1, the space axis's common window height for
+    the pipeline's row radius (parallel/space.py), traced under a one-rank
+    space context so that the global ops' reductions are custom ops of the
+    program; it needs no process group here, and the loader needs one of
+    d s ranks.  platforms: where the artifact may be loaded,
     'cuda' (or 'gpu') and 'cpu'; None = both, since the program runs on
     either device.  Recorded in the header; load_pipeline holds to it."""
     mesh_dims = (int(data_parallel), int(space_parallel))
@@ -149,8 +152,6 @@ def export_pipeline(pipe, input_shape: Sequence, *,
         if patch:
             raise ValueError("mesh-sharded export is whole-frame only; the "
                              "tiled engine is the single-chip memory story")
-        if mesh_dims[1] > 1:
-            _check_mesh(*mesh_dims)
     names = _platform_names(platforms)
     dims = list(input_shape)
     poly_batch = dims[0] in (-1, "b", None)
@@ -163,13 +164,21 @@ def export_pipeline(pipe, input_shape: Sequence, *,
         # divide the batch
         rows = meshlib.shard_slices((rows,), 0, mesh_dims[0], 0, 1)[0]
         rows = rows.stop - rows.start
-    example = torch.zeros((rows, *(int(d) for d in dims[1:])),
-                          device=pipe.device)
+    frame = [int(d) for d in dims[1:]]
+    halo = None
+    traced = contextlib.nullcontext()
+    if mesh_dims[1] > 1:
+        halo = spacelib.radius(pipe)
+        height = frame[0]
+        win = spacelib.window(height, 0, mesh_dims[1], halo)
+        frame[0] = win.rows
+        traced = spacelib.context(None, win, height)
+    example = torch.zeros((rows, *frame), device=pipe.device)
     dynamic = ({0: torch.export.Dim("b")},) if poly_batch else None
     program = ServingProgram(pipe, patch, stride, chunk)
     dtype = (precision._DTYPES[storage] if storage
              else precision.cnn_storage_dtype())
-    with precision.cnn_storage(dtype), torch.no_grad():
+    with precision.cnn_storage(dtype), torch.no_grad(), traced:
         exported = torch.export.export(program, (example,),
                                        dynamic_shapes=dynamic, strict=False)
     # the example input would be saved with the program: a zero frame
@@ -191,6 +200,8 @@ def export_pipeline(pipe, input_shape: Sequence, *,
                  if mesh_dims != (1, 1) else None),
         "platforms": names,
     }
+    if halo is not None:
+        header["halo"] = halo
     hjson = json.dumps(header).encode("utf-8")
     return MAGIC + struct.pack("<I", len(hjson)) + hjson + buf.getvalue()
 
@@ -203,9 +214,11 @@ def save_artifact(path: str, blob: bytes) -> None:
 class ServingPipeline:
     """A loaded artifact: `meta` dict + `__call__(image) -> sRGB` on
     `device`.  The program holds the weights; no op zoo is needed.  A
-    data-parallel artifact is served by every rank of its mesh, each
-    called with the whole batch: it runs its rows and returns the whole
-    output, gathered in rank order."""
+    mesh artifact is served by every rank of its mesh, each called with
+    the whole batch: it runs its images (on a space axis, its window of
+    their frames under the space context, then keeps the owned rows) and
+    returns the whole output, gathered over space and data in rank
+    order."""
 
     def __init__(self, meta: dict, exported, device: torch.device):
         self.meta = meta
@@ -214,6 +227,7 @@ class ServingPipeline:
         self._module = exported.module()
         self._mesh = (_check_mesh(meta["mesh"]["data"], meta["mesh"]["space"])
                       if meta.get("mesh") else None)
+        self._space = spacelib.SpaceAxis.of(self._mesh, meta.get("halo"))
 
     @property
     def architecture(self) -> str:
@@ -233,7 +247,12 @@ class ServingPipeline:
         with torch.inference_mode():
             if self._mesh is None:
                 return self._module(x)
-            y = self._module(meshlib.shard_batch(self._mesh, x))
+            x = meshlib.shard_data(self._mesh, x)
+            if self._space is None:
+                y = self._module(x)
+            else:
+                with self._space.frame(x.shape[1]):
+                    y = spacelib.gather(self._module(self._space.take(x)))
             return meshlib.all_gather(
                 y, self._mesh.get_group(meshlib.DATA_AXIS))
 

@@ -13,6 +13,9 @@ Usage:
   python -m reconfigisp_tpu_torch.export --opt configs/SID_test.yaml \
       --shape 1x2848x4256x1 --patch 512 --stride 480 --storage bf16 \
       --out sid_serving.rispt [--device cpu]
+  python -m reconfigisp_tpu_torch.export --opt configs/SID_test.yaml \
+      --shape 2x2848x4256x1 --patch 0 --data-parallel 1 --space-parallel 2 \
+      --out sid_space2.rispt    # served by 2 ranks, each half of a frame
 """
 
 import argparse
@@ -35,8 +38,9 @@ def main(argv=None) -> int:
                     help="mesh 'data' axis: the ranks that serve the batch"
                          " (whole-frame path only)")
     ap.add_argument("--space-parallel", type=int, default=1,
-                    help="mesh 'space' axis; not ported on whole frames"
-                         " (must be 1)")
+                    help="mesh 'space' axis: the ranks that split each"
+                         " frame's height, each running a window with the"
+                         " pipeline's halo (whole-frame path only)")
     ap.add_argument("--platforms", default=None,
                     help="comma list of cuda (or gpu) and cpu: where the "
                          "artifact may be loaded; both by default")

@@ -10,6 +10,8 @@ runs NCHW inside; the apply functions keep the JAX package's NHWC interface.
   * SRCNN demosaic: RGGB pack, conv 9x9/64, 1x1/32, 5x5/12, pixel shuffle.
   * Path-Restore-14L: a 3x3 conv to 64 channels, six pre-activation residual
     blocks of two 64->64 3x3 convs, and a 3x3 conv out.
+The SRCNN-Res conditioning is over the whole frame: under a space context
+(parallel/space.py) over the frame's rows gathered over the space group.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch.nn.utils import skip_init
 
 from reconfigisp_tpu_torch.ops.nn import (
     bayer_to_rggb, broadcast_params, init_conv, pixel_shuffle)
+from reconfigisp_tpu_torch.parallel import space
 from reconfigisp_tpu_torch.precision import cnn_storage_dtype
 
 _WIDTH = 64
@@ -93,14 +96,20 @@ class SRCNNDemosaic(nn.Module):
         return _conv_s(y, self.conv3).to(feat.dtype)
 
 
+def _frame_stats(x: torch.Tensor) -> list:
+    """The per-channel min, mean and max of each image."""
+    frame = space.gather(x, reduce_grad=True) if space.active() else x
+    return [torch.amin(frame, dim=(1, 2)), torch.mean(frame, dim=(1, 2)),
+            torch.amax(frame, dim=(1, 2))]
+
+
 def apply_srcnn_res(net: SRCNNRes, x: torch.Tensor, params) -> torch.Tensor:
     """x (N,H,W,3) BGR; params (N,P), P <= MAX_PROXY_PARAMS, or None."""
     n, h, w, _ = x.shape
     if params is None:
         params = x.new_zeros((n, 0))
     params = F.pad(params, (0, MAX_PROXY_PARAMS - params.shape[1]))
-    cond = torch.cat([torch.amin(x, dim=(1, 2)), torch.mean(x, dim=(1, 2)),
-                      torch.amax(x, dim=(1, 2)), params], dim=1)
+    cond = torch.cat(_frame_stats(x) + [params], dim=1)
     feat = torch.cat([x, broadcast_params(cond, h, w)], dim=-1)
     return x + net(_nchw(feat)).permute(0, 2, 3, 1)
 
@@ -126,8 +135,7 @@ def apply_srcnn_res_bank(nets, x: torch.Tensor,
     146-160): the K stacks' convs run as one conv per layer."""
     k = len(nets)
     n, h, w, _ = x.shape
-    stats = torch.cat([torch.amin(x, dim=(1, 2)), torch.mean(x, dim=(1, 2)),
-                       torch.amax(x, dim=(1, 2))], dim=1)
+    stats = torch.cat(_frame_stats(x), dim=1)
     cond = torch.cat([stats.expand(k, n, stats.shape[1]), params], dim=2)
     feat = torch.cat([x.permute(0, 3, 1, 2).expand(k, n, 3, h, w),
                       cond[..., None, None].expand(*cond.shape, h, w)], dim=2)

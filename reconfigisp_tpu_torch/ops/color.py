@@ -2,6 +2,9 @@
 
 Counterpart of reconfigisp_tpu/ops/color.py.  All ops take NHWC BGR images in
 [0, 1] and per-image parameters `params` (N, P) already squashed into [0, 1].
+grayworld and wb_whiteworld reduce over the whole frame: under a space
+context (parallel/space.py) over the frame's rows that the space group's
+windows own.
 """
 
 from __future__ import annotations
@@ -9,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from reconfigisp_tpu_torch.ops.nn import clip
+from reconfigisp_tpu_torch.parallel import space
 
 GAMMA_MAX = 3.0  # params01=0.5 -> gamma 1.0 (identity); range [1/3, 3]
 
@@ -22,7 +26,12 @@ def gamma(x, params, weights=None):
 
 def grayworld(x, params=None, weights=None):
     """Gray-world white balance; the gains are detached statistics."""
-    ch_mean = torch.mean(x, dim=(1, 2), keepdim=True)
+    if space.active():
+        # a detached sum over the frame's rows and their count
+        count = space.frame_height() * x.shape[2]
+        ch_mean = (space.frame_sum(x.detach().sum(2)) / count)[:, None, None]
+    else:
+        ch_mean = torch.mean(x, dim=(1, 2), keepdim=True)
     target = torch.mean(ch_mean, dim=3, keepdim=True)
     gain = (target / clip(ch_mean, 1e-6)).detach()
     return clip(x * gain, 0.0, 1.0)
@@ -37,10 +46,13 @@ def wb_manual(x, params, weights=None):
 def wb_whiteworld(x, params, weights=None):
     """White-patch WB: each channel's (1 - r/2)-quantile is scaled to 1.
     The quantile is a detached order statistic; the gradient to r flows
-    through the interpolation between neighbouring order statistics."""
-    n, h, w, c = x.shape
+    through the interpolation between neighbouring order statistics.
+    Under a space context the order statistics are the whole frame's: its
+    rows gathered over the space group (detached)."""
+    frame = space.gather(x.detach()) if space.active() else x
+    n, h, w, c = frame.shape
     ratio = params[:, 0]
-    srt = torch.sort(x.reshape(n, h * w, c), dim=1).values
+    srt = torch.sort(frame.reshape(n, h * w, c), dim=1).values
     q = 1.0 - 0.5 * ratio
     pos = q * (h * w - 1)
     lo = torch.floor(pos).to(torch.int64)

@@ -5,7 +5,9 @@ Counterpart of reconfigisp_tpu/ops/conditional.py.  The flat vector holds,
 in order, each layer's (cin, cout) weight and (cout,) bias, then a global
 bias on the predicted parameters.  It is used raw (no sigmoid, no batch
 repeat); the sigmoid goes on the FC output.  The input is the per-channel
-histogram of the image, a count that carries no gradient.
+histogram of the image, a count that carries no gradient; under a space
+context (parallel/space.py) each row's counts, summed over the frame's
+rows that the space group's windows own.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from reconfigisp_tpu_torch.ops import color
+from reconfigisp_tpu_torch.parallel import space
 
 DEFAULT_IN_CHANNELS = (24, 16)  # 3 channels x 8 bins, then one hidden layer
 
@@ -27,9 +30,14 @@ def conditional_n_params(in_channels: tuple, out_channel: int) -> int:
 def channel_histograms(x: torch.Tensor, bins: int) -> torch.Tensor:
     """(N, H, W, 3) -> (N, 3 * bins) counts of floor(x * bins), clipped into
     the bins, channel-major; detached."""
-    n, _, _, c = x.shape
+    n, rows, _, c = x.shape
     idx = torch.clamp(torch.floor(x.detach() * bins), 0, bins - 1).to(torch.int64)
     idx = idx + bins * torch.arange(c, device=x.device)
+    if space.active():
+        idx = idx + (c * bins) * torch.arange(
+            n * rows, device=x.device).reshape(n, rows, 1, 1)
+        counts = torch.bincount(idx.reshape(-1), minlength=n * rows * c * bins)
+        return space.frame_sum(counts.reshape(n, rows, c * bins).to(x.dtype))
     idx = idx + (c * bins) * torch.arange(n, device=x.device)[:, None, None, None]
     counts = torch.bincount(idx.reshape(-1), minlength=n * c * bins)
     return counts.reshape(n, c * bins).to(x.dtype)

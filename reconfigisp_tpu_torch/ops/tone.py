@@ -3,7 +3,9 @@ Hable filmic curves.
 
 Counterpart of reconfigisp_tpu/ops/tone.py.  Images are NHWC BGR in [0, 1];
 params (N, P) are already squashed into [0, 1].  Luminance uses the BT.601
-weights in BGR order.
+weights in BGR order.  tone_reinhard's log-average is over the whole frame:
+under a space context (parallel/space.py) a sum over the owned rows,
+SUM-reduced over the space group with its gradient.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from reconfigisp_tpu_torch.ops.nn import clip
+from reconfigisp_tpu_torch.parallel import space
 
 LUM_BGR = (0.114, 0.587, 0.299)
 
@@ -21,12 +24,16 @@ _LUM = {}   # (device, dtype) -> LUM_BGR there
 def _luminance(x: torch.Tensor) -> torch.Tensor:
     # made once per device, so that a captured CUDA graph copies nothing
     # from the host; a normal tensor even under inference mode, so that
-    # autograd can save it later
+    # autograd can save it later; not kept when made inside a trace
+    # (torch.export), where it is a fake tensor of that trace
     key = (x.device, x.dtype)
-    if key not in _LUM:
+    lum = _LUM.get(key)
+    if lum is None:
         with torch.inference_mode(False):
-            _LUM[key] = torch.tensor(LUM_BGR, dtype=x.dtype, device=x.device)
-    return (x @ _LUM[key])[..., None]  # (N, H, W, 1)
+            lum = torch.tensor(LUM_BGR, dtype=x.dtype, device=x.device)
+        if not torch.compiler.is_compiling():
+            _LUM[key] = lum
+    return (x @ lum)[..., None]  # (N, H, W, 1)
 
 
 def _scale_by_luminance(x, l_in, l_out):
@@ -57,8 +64,13 @@ def tone_reinhard(x, params, weights=None):
     white = 0.5 + 3.5 * params[:, 0]
     key = 0.05 + 0.85 * params[:, 1]
     l_in = _luminance(x)
-    log_avg = torch.exp(torch.mean(torch.log(clip(l_in, 1e-6)),
-                                   dim=(1, 2, 3), keepdim=True))
+    log_l = torch.log(clip(l_in, 1e-6))
+    if space.active():
+        count = space.frame_height() * x.shape[2]
+        log_avg = torch.exp(space.frame_sum(log_l.sum((2, 3))) / count)[
+            :, None, None, None]
+    else:
+        log_avg = torch.exp(torch.mean(log_l, dim=(1, 2, 3), keepdim=True))
     l_scaled = key[:, None, None, None] * l_in / log_avg
     w2 = (white ** 2)[:, None, None, None]
     l_out = l_scaled * (1.0 + l_scaled / w2) / (1.0 + l_scaled)

@@ -15,10 +15,10 @@ max(world, 2) 16x16 crops made from numpy seed 0:
   4. DartsFtTrainer at K = 2 with its replay memory and a tuning round, and
      a frozen-YOLO search step (tiny_test, 1 class).
 
-Each check's loss must be finite and equal on every rank.  A whole-frame
-space axis is not ported (ROADMAP.md), so at world 4 and more checks 1, 2
-and 4 run over a (world, 1) mesh and only check 3 takes the space axis.
--> rank 0's lines, the kernels' launches of each rank beside them.
+Every check runs over that mesh: checks 1, 2 and 4 split the crops' height
+over space through windows (parallel/space.py), check 3 deals the tile
+positions over it.  Each check's loss must be finite and equal on every
+rank.  -> rank 0's lines, the kernels' launches of each rank beside them.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ def _zero_launches() -> None:
 
 def _checks(rank: int, world: int, device: str, out_dir: str) -> None:
     from reconfigisp_tpu_torch.parallel.dp import make_data_parallel_step
+    from reconfigisp_tpu_torch.parallel.space import SpaceAxis, radius
     from reconfigisp_tpu_torch.parallel.tiling import tiled_apply
     from reconfigisp_tpu_torch.pipeline import Pipeline
     from reconfigisp_tpu_torch.search.darts import (
@@ -63,7 +64,8 @@ def _checks(rank: int, world: int, device: str, out_dir: str) -> None:
     from reconfigisp_tpu_torch.utils import losses
 
     dev = torch.device(device)   # on CUDA, the rank's card is current
-    mesh = meshlib.make_mesh(world)
+    space = _mesh_space(world)
+    mesh = meshlib.make_mesh(world, space=space)
     group = mesh.get_group(meshlib.DATA_AXIS)
     rng = np.random.default_rng(0)
     n = max(world, 2)
@@ -75,7 +77,7 @@ def _checks(rank: int, world: int, device: str, out_dir: str) -> None:
 
     def record(what: str, value: float) -> None:
         got = torch.tensor([value], dtype=torch.float64)
-        gathered = meshlib.all_gather(got, group)
+        gathered = meshlib.all_gather(got, None)   # every rank of the mesh
         if not (np.isfinite(value) and bool((gathered == got).all())):
             raise AssertionError(f"{what}: {gathered.tolist()} over ranks")
         lines.append(f"{what}={value:.5f}")
@@ -91,8 +93,8 @@ def _checks(rank: int, world: int, device: str, out_dir: str) -> None:
             return y, aux["latency"]
 
         step = make_data_parallel_step(make_darts_step(
-            forward, losses.make_criterion("l2"), DartsConfig(), group=group),
-            mesh)
+            forward, losses.make_criterion("l2"), DartsConfig(), group=group,
+            space=SpaceAxis.of(mesh, radius(net))), mesh)
         batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         _, _, logs = step(variables, init_darts_opt_state(variables), batch,
                           1.0)
@@ -111,18 +113,16 @@ def _checks(rank: int, world: int, device: str, out_dir: str) -> None:
 
     # 3) the tile program: rows over data, positions over space, the
     # output gathered over data
-    space = _mesh_space(world)
-    tile_mesh = meshlib.make_mesh(world, space=space)
     pipe = Pipeline("Bayer_02_Demosaic_02_sRGB_01_06", device=dev,
                     generator=torch.Generator().manual_seed(1))
     frames = torch.from_numpy(mk(1, 64)).to(dev)
-    data_index, data_size, _, _ = meshlib.coordinate(tile_mesh)
+    data_index, data_size, _, _ = meshlib.coordinate(mesh)
     rows = meshlib.shard_slices((n,), data_index, data_size, 0, 1)[0]
     with torch.no_grad():
         y = meshlib.all_gather(
             tiled_apply(pipe, frames[rows], patch=32, stride=24, chunk=2,
-                        group=tile_mesh.get_group(meshlib.SPACE_AXIS)),
-            tile_mesh.get_group(meshlib.DATA_AXIS))
+                        group=mesh.get_group(meshlib.SPACE_AXIS)),
+            mesh.get_group(meshlib.DATA_AXIS))
         alone = tiled_apply(pipe, frames, patch=32, stride=24, chunk=2)
     if tuple(y.shape) != (n, 64, 64, 3) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"tiled output {tuple(y.shape)}")

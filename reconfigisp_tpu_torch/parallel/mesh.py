@@ -17,7 +17,9 @@ the first n ranks, shaped (n // space, space) as JAX shapes it.  Its device
 type is "cuda" under NCCL and "cpu" under gloo, where the collectives run on
 host copies.  `shard_slices` is the sharding rule of a NamedSharding as a
 pure function of the rank's mesh coordinates, so it is testable without a
-group; `shard_batch` applies it.
+group; `shard_batch` applies it.  The trainers, the applies and the serving
+artifact take whole frames (`shard_data`: N over data only) and split
+height over space through windows with a halo (parallel/space.py).
 """
 
 from __future__ import annotations
@@ -137,18 +139,28 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def shard_batch(mesh: DeviceMesh, tree, *, stacked: bool = False):
-    """This rank's part of a global batch (nested dicts of tensors, numpy
-    arrays or numbers), by `shard_slices`; tensors and arrays come back as
-    views of the same type."""
-    coord = coordinate(mesh)
-
+def _shard(tree, coord: tuple, stacked: bool):
     def put(x):
         if not isinstance(x, (torch.Tensor, np.ndarray)):
             return x
         return x[shard_slices(x.shape, *coord, stacked=stacked)]
 
     return _map(put, tree)
+
+
+def shard_batch(mesh: DeviceMesh, tree, *, stacked: bool = False):
+    """This rank's part of a global batch (nested dicts of tensors, numpy
+    arrays or numbers), by `shard_slices`; tensors and arrays come back as
+    views of the same type."""
+    return _shard(tree, coordinate(mesh), stacked)
+
+
+def shard_data(mesh: DeviceMesh, tree, *, stacked: bool = False):
+    """This rank's images of a global batch, whole frames: shard_batch's
+    rule with N over data and nothing over space (the space axis takes
+    windows of the frames, parallel/space.py)."""
+    data_index, data_size, _, _ = coordinate(mesh)
+    return _shard(tree, (data_index, data_size, 0, 1), stacked)
 
 
 def collective(fn: Callable, tensor: torch.Tensor, group) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from reconfigisp_tpu_torch.device import resolve_device
+from reconfigisp_tpu_torch.parallel import space
 from reconfigisp_tpu_torch.registry import OpSpec, get_op
 
 _DOMAIN_TOKENS = {"Bayer": "bayer", "Demosaic": "demosaic", "sRGB": "srgb"}
@@ -104,7 +105,9 @@ class Pipeline(nn.Module):
 
         With return_intermediates, returns (y, {step_name: output},
         latency_ms_per_mp), the sum of the steps' entries in
-        registry.LATENCY_MS_PER_MP (None if one has none).
+        registry.LATENCY_MS_PER_MP (None if one has none).  Under a space
+        context (parallel/space.py) x is a window, y the window's output and
+        the intermediates are trimmed to the window's owned rows.
         """
         n = x.shape[0]
         mids = {}
@@ -116,6 +119,8 @@ class Pipeline(nn.Module):
             mids[step_name] = x
         if not return_intermediates:
             return x
+        if space.active():
+            mids = {k: space.trim(v) for k, v in mids.items()}
         lat = [spec.latency for _, spec in self.steps]
         latency = None if None in lat else float(sum(lat))
         return x, mids, latency

@@ -23,11 +23,17 @@ With a data group (`group=`, the mesh's data axis: the counterpart of the
 JAX step's `axis_name`) the batch is this rank's shard and the criterion
 returns its share of the global loss (utils/losses.py), so summing the
 shares' gradients over the group (parallel/dp.reduce_grads) gives the
-global batch's gradient, as the JAX trainers' sharded jit computes it.  The
-step reduces where the JAX step calls maybe_pmean: the weights' gradient of
-pass 1, the alphas' and theta_v's of pass 2 (so eps comes from the global
-|dtheta_v|), the Hessian term, the alphas' gradient of the first-order step
-and the weights' of pass 5; and it sums the logged losses.  It sums, where
+global batch's gradient, as the JAX trainers' sharded jit computes it.
+With a space axis as well (`space=`, a parallel/space.SpaceAxis of the
+mesh) the images are whole frames: each pass runs the network on this
+rank's window under the space context, and the criterion sees the
+prediction's owned rows gathered over the space group, the whole frame
+(parallel/dp.py), and the gradients are summed over the whole mesh, the
+data group and then the space group.  The step reduces where the JAX step
+calls maybe_pmean: the weights' gradient of pass 1, the alphas' and
+theta_v's of pass 2 (so eps comes from the global |dtheta_v|), the Hessian
+term, the alphas' gradient of the first-order step and the weights' of
+pass 5; and it sums the logged losses over the data group.  It sums, where
 JAX's axis_name path takes a mean of per-shard gradients, which differs
 from the sharded jit for a count-normalised loss.  A gradient that does not reach a tensor
 (the median's logit, a path multiplied by an exact 0) is zeros, as JAX
@@ -50,6 +56,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from reconfigisp_tpu_torch.ops.kernels import _vjp
+from reconfigisp_tpu_torch.parallel import space as spacelib
 from reconfigisp_tpu_torch.parallel.dp import reduce_grads
 
 log = logging.getLogger(__name__)
@@ -115,7 +122,7 @@ def init_darts_opt_state(variables: dict) -> dict:
 
 
 def make_darts_step(forward: Callable, criterion: Callable,
-                    cfg: DartsConfig, group=None) -> Callable:
+                    cfg: DartsConfig, group=None, space=None) -> Callable:
     """step(variables, opt_state, batch, lr_scale) -> (variables, opt_state,
     logs).
 
@@ -130,23 +137,39 @@ def make_darts_step(forward: Callable, criterion: Callable,
     scale as a float32 array.  The logs "loss", "val_loss", "eps" and
     "dtheta_norm" are 0-d tensors.  With `group`, the criterion is called
     with group= and the step reduces over it (module docstring); the logs
-    are the global batch's."""
+    are the global batch's.  With `space` (a parallel/space.SpaceAxis) the
+    images are whole frames and the forward runs on this rank's windows;
+    mids come back trimmed to the owned rows."""
 
     def loss_on(theta, alphas, omega, img, gt, flag=None):
+        if space is not None:
+            img = space.take(img)
         out = forward(theta, alphas, omega, img)
         pred, latency = out[0], out[1]
         mids = out[2] if len(out) > 2 else None
+        if space is not None:
+            pred = spacelib.gather(pred)
         kw = {} if flag is None else {"glb_flag": flag}
         if group is not None:
             kw["group"] = group
         return criterion(pred, gt, latency=latency, **kw), mids
 
     def reduce(tree):
-        if group is not None:
-            reduce_grads(_leaves(tree), group)
+        reduce_grads(_leaves(tree), group,
+                     None if space is None else space.group)
         return tree
 
     def step(variables, opt_state, batch, lr_scale):
+        if space is None:
+            return body(variables, opt_state, batch, lr_scale)
+        height = batch["img"].shape[1]
+        if batch["val_img"].shape[1] != height:
+            raise ValueError("the space axis takes training and validation "
+                             "frames of one height")
+        with space.frame(height):
+            return body(variables, opt_state, batch, lr_scale)
+
+    def body(variables, opt_state, batch, lr_scale):
         theta, alphas, omega = (variables["theta"], variables["alphas"],
                                 variables["omega"])
         img, gt = batch["img"], batch["gt"]
@@ -231,12 +254,14 @@ def make_darts_step(forward: Callable, criterion: Callable,
                    "adam_t": t_adam}
         losses = {"loss": train_loss.detach(), "val_loss": val_loss.detach()}
         if group is not None:
-            losses = reduce(_map(torch.clone, losses))
+            losses = _map(torch.clone, losses)
+            reduce_grads(_leaves(losses), group)
         logs = {**losses, "eps": eps, "dtheta_norm": norm}
         if mids is not None:
             logs["_mids"] = mids.detach()
         return new_vars, new_opt, logs
 
+    step.space = space
     return step
 
 
@@ -300,6 +325,7 @@ def make_darts_multi_step(step: Callable, group=None) -> Callable:
 
     multi.graph = None
     multi.logged = False
+    multi.space = getattr(step, "space", None)
     return multi
 
 

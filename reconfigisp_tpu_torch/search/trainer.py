@@ -21,19 +21,24 @@ captured CUDA graph).
 
 Data parallelism (the JAX trainers' `mesh`): each trainer takes a mesh
 (parallel/mesh.make_mesh) whose ranks share the global batch.  Every rank
-is given the whole batch, takes its rows (parallel/mesh.shard_batch),
+is given the whole batch, takes its images (parallel/mesh.shard_data),
 computes its share of the global loss (the criterion called with the data
 group) and SUM-reduces the gradients of the shares (parallel/dp), so every
 rank applies the global batch's gradient, as the JAX package's sharded jit
-does.  DDP is not used: it averages per-rank gradients, which equals the
-global gradient only for a plain mean over equal shards, and the local/
-global and YOLO losses normalise by counts over the whole batch.  A
+does.  On a mesh with a space axis each rank runs the network on its
+window of the frames and the criterion sees the whole frame, gathered over
+the space group; the gradients are summed over the data and the space
+group, the logged losses over the data group (parallel/dp.py).  DDP is not
+used: it averages per-rank gradients, which equals the global gradient
+only for a plain mean over equal shards, and the local/global and YOLO
+losses normalise by counts over the whole batch.  A
 criterion passed to a trainer with a mesh must take `group=` and return
 its share (utils/losses.make_criterion, make_yolo_criterion do).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -44,6 +49,7 @@ import torch
 
 from reconfigisp_tpu_torch import convert
 from reconfigisp_tpu_torch.parallel import mesh as meshlib
+from reconfigisp_tpu_torch.parallel import space as spacelib
 from reconfigisp_tpu_torch.parallel.dp import reduce_grads
 from reconfigisp_tpu_torch.pipeline import Pipeline, resolve_device
 from reconfigisp_tpu_torch.search.darts import (
@@ -76,12 +82,13 @@ class IspTrainer:
     under `target_key` and, for the local/global loss, "glb_flag"; they are
     moved to the pipeline's device.
 
-    With a `mesh`, each rank takes its rows of the global batch, backward
-    runs on its share of the loss, the gradients are SUM-reduced over the
-    data group and Adam steps on the global gradient; the logged loss is
-    the global batch's (module docstring).  The pipeline's state is
-    broadcast from the mesh's first rank at construction.  eval_loss and
-    test run on this rank alone, on the batch they are given."""
+    With a `mesh`, each rank takes its images of the global batch (on a
+    space axis, its windows of their frames), backward runs on its share of
+    the loss, the gradients are SUM-reduced over the mesh and Adam steps on
+    the global gradient; the logged loss is the global batch's (module
+    docstring).  The pipeline's state is broadcast from the mesh's first
+    rank at construction.  eval_loss and test run on this rank alone, on
+    the batch they are given."""
 
     def __init__(self, pipeline: Pipeline, train_opt: dict, *,
                  train_weights: bool = False,
@@ -91,6 +98,7 @@ class IspTrainer:
         self.mesh = mesh
         self.group = (None if mesh is None
                       else mesh.get_group(meshlib.DATA_AXIS))
+        self.space = spacelib.SpaceAxis.of(mesh, spacelib.radius(pipeline))
         if mesh is not None:
             meshlib.replicate(mesh, {"logits": pipeline.logits,
                                      "weights": pipeline.weights})
@@ -128,8 +136,15 @@ class IspTrainer:
         return {k: self._tensor(v) for k, v in batch.items()}
 
     def _loss(self, batch: dict, group=None) -> torch.Tensor:
-        pred, _, latency = self.pipeline(batch["noisy"],
-                                         return_intermediates=True)
+        """The criterion on the pipeline's output; under the space context
+        the pipeline runs on the window and the criterion sees the whole
+        frame (train_step)."""
+        noisy = batch["noisy"]
+        if spacelib.active():
+            noisy = self.space.take(noisy)
+        pred, _, latency = self.pipeline(noisy, return_intermediates=True)
+        if spacelib.active():
+            pred = spacelib.gather(pred)
         kw = {"glb_flag": batch["glb_flag"]} if "glb_flag" in batch else {}
         if group is not None:
             kw["group"] = group
@@ -144,12 +159,16 @@ class IspTrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         if self.mesh is not None:
-            batch = meshlib.shard_batch(self.mesh, batch)
-        loss = self._loss(self._batch(batch), self.group)
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+            batch = meshlib.shard_data(self.mesh, batch)
+        batch = self._batch(batch)
+        with (self.space.frame(batch["noisy"].shape[1]) if self.space
+              else contextlib.nullcontext()):
+            loss = self._loss(batch, self.group)
+            grads = torch.autograd.grad(loss, self._params, allow_unused=True)
         if self.group is not None:
             # the same parameters get a gradient on every rank
-            reduce_grads([g for g in grads if g is not None], self.group)
+            reduce_grads([g for g in grads if g is not None], self.group,
+                         None if self.space is None else self.space.group)
             loss = loss.detach().clone()
             reduce_grads([loss], self.group)
         for p, g in zip(self._params, grads):
@@ -227,10 +246,11 @@ class DartsTrainer:
     mosaics, the target under `target_key` and optionally "glb_flag"; they
     are moved to that device, K at a time.
 
-    With a `mesh`, each dispatch takes this rank's rows of the K global
-    batches and the step reduces over the data group
-    (search/darts.make_darts_step's `group`), so every rank holds the
-    serial trainer's variables; the variables are broadcast from the
+    With a `mesh`, each dispatch takes this rank's images of the K global
+    batches (on a space axis, the step runs on its windows of the frames)
+    and the step reduces over the mesh (search/darts.make_darts_step's
+    `group` and `space`), so every rank holds the serial trainer's
+    variables; the variables are broadcast from the
     mesh's first rank at construction.  Under a gloo group on CUDA the
     steps run eagerly (make_darts_multi_step) and `graph` is None."""
 
@@ -244,6 +264,7 @@ class DartsTrainer:
         self.mesh = mesh
         self.group = (None if mesh is None
                       else mesh.get_group(meshlib.DATA_AXIS))
+        self.space = spacelib.SpaceAxis.of(mesh, spacelib.radius(supernet))
         self.variables = supernet.init(generator)
         if mesh is not None:
             meshlib.replicate(mesh, self.variables)
@@ -268,7 +289,7 @@ class DartsTrainer:
                     img, return_aux=True)
                 return y, aux["latency"]
         self._step = make_darts_step(forward, self.criterion, self.cfg,
-                                     group=self.group)
+                                     group=self.group, space=self.space)
         self.k = max(1, int(train_opt.get("steps_per_dispatch", 1)))
         self._multi = make_darts_multi_step(self._step, group=self.group)
         self._buf: list = []
@@ -318,7 +339,7 @@ class DartsTrainer:
                                    for v in values)
                             else np.stack([np.asarray(v) for v in values]))
         if self.mesh is not None:
-            stacked = meshlib.shard_batch(self.mesh, stacked, stacked=True)
+            stacked = meshlib.shard_data(self.mesh, stacked, stacked=True)
         stacked = {k: self._tensor(v) for k, v in stacked.items()}
         self.variables, self.opt_state, logs = self._multi(
             self.variables, self.opt_state, stacked, [lr for _, lr in buf])
@@ -412,8 +433,9 @@ class DartsFtTrainer(DartsTrainer):
     ft_target proxy to its target (the native op, or dct_denoise for bm3d)
     on those, at params drawn ~ U[0, 1), with one Adam per proxy.  omega is
     shared by the slots, so one update reaches every slot.  With a mesh the
-    memory holds the global batch's intermediates (gathered over the data
-    group), so every rank tunes the same proxies from the same draws; the
+    memory holds the global batch's intermediates (their owned rows
+    gathered over the space group, then the images over the data group),
+    so every rank tunes the same proxies from the same draws; the
     tuned proxies are then broadcast from the mesh's first rank, so that
     the cards' rounding cannot set the ranks' omega apart."""
 
@@ -461,8 +483,11 @@ class DartsFtTrainer(DartsTrainer):
         none yet); before any step, those of a forward on `train_batch`."""
         mids = self._last_aux.pop("_mids", None)
         if mids is not None:
+            if self.space is not None:
+                # (K n_mids, images, owned rows, W, 3): the whole frames
+                mids = meshlib.all_gather(mids, self.space.group, dim=2)
             if self.group is not None:
-                # (K n_mids, rows of this rank, H, W, 3): the global batch
+                # (K n_mids, images of this rank, H, W, 3): the global batch
                 # in rank order, as the serial trainer records it
                 mids = meshlib.all_gather(mids, self.group, dim=1)
             self.ft_data.extend(mids.unbind(0))

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from reconfigisp_tpu_torch.ops import cnn
+from reconfigisp_tpu_torch.parallel import space
 from reconfigisp_tpu_torch.pipeline import resolve_device
 from reconfigisp_tpu_torch.registry import SUPERNET_SRGB_COUNT, pool
 
@@ -109,7 +110,9 @@ class SuperNet:
                  return_aux: bool = False, fuse_banks: bool = True):
         """x (N,H,W,1) Bayer -> (N,H,W,3) BGR.  With return_aux:
         (y, {"intermediates": [slot outputs], "latency": scalar tensor or
-        None, "pruned": (n_slots,) int64})."""
+        None, "pruned": (n_slots,) int64}).  Under a space context
+        (parallel/space.py) x is a window, y the window's output and the
+        intermediates are trimmed to the window's owned rows."""
         n = x.shape[0]
         mids, pruned = [], []
         latency = x.new_zeros(())
@@ -158,6 +161,8 @@ class SuperNet:
             x = y
         if not return_aux:
             return x
+        if space.active():
+            mids = [space.trim(m) for m in mids]
         return x, {"intermediates": mids,
                    "latency": latency if has_latency else None,
                    "pruned": torch.stack(pruned)}

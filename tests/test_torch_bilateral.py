@@ -12,6 +12,7 @@ from reconfigisp_tpu.ops.pallas_kernels import bilateral_pallas
 from reconfigisp_tpu_torch import registry
 from reconfigisp_tpu_torch.ops import denoise
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 # shape, params rows [window01, sigma_color01, sigma_space01]
 _CASES = {

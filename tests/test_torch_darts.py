@@ -43,6 +43,7 @@ from reconfigisp_tpu_torch.utils import latency, losses
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
 
 from test_torch_supernet import jit_ops
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 BANK = "experiments/proxies/default.ckpt"
 ALPHA_ATOL = 3e-5

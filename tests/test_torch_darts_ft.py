@@ -21,6 +21,7 @@ from reconfigisp_tpu_torch.ops import denoise
 from reconfigisp_tpu_torch.search import DartsFtTrainer
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 # ------------------------------------------------------------- dct_denoise
 

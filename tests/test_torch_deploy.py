@@ -25,6 +25,7 @@ from reconfigisp_tpu_torch import convert, deploy
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FLAGSHIP = "Bayer_01_Demosaic_03_sRGB_01_13_11"
@@ -172,21 +173,29 @@ def test_each_loader_rejects_the_others_magic(pairs, jax_flagship_artifact):
 
 
 def test_mesh_raises(pairs):
-    """A mesh with patch: ValueError, as in the JAX package; a space axis
-    on whole frames: NotImplementedError that names its ROADMAP.md item; a
-    data-parallel artifact loaded without a group of as many ranks:
-    ValueError with the JAX package's message (a rank for a device).
-    Serving it over two ranks: tests/test_torch_dp.py."""
+    """A mesh with patch: ValueError, as in the JAX package, on either
+    axis; a height the space axis does not divide: ValueError; a mesh
+    artifact loaded without a group of as many ranks: ValueError with the
+    JAX package's message (a rank for a device).  Serving them over two
+    and four ranks: tests/test_torch_dp.py, tests/test_torch_space.py."""
     pt = pairs[FLAGSHIP][2]
     with pytest.raises(ValueError, match="whole-frame only"):
         deploy.export_pipeline(pt, SHAPE, data_parallel=2, **TILING)
-    with pytest.raises(NotImplementedError, match="whole-frame space axis"):
-        deploy.export_pipeline(pt, SHAPE, space_parallel=2)
-    with pytest.raises(NotImplementedError, match="whole-frame space axis"):
-        deploy.export_pipeline(pt, SHAPE, data_parallel=2, space_parallel=2)
+    with pytest.raises(ValueError, match="whole-frame only"):
+        deploy.export_pipeline(pt, SHAPE, space_parallel=2, **TILING)
+    with pytest.raises(ValueError, match="does not split"):
+        deploy.export_pipeline(pt, (2, 66) + tuple(SHAPE[2:]),
+                               space_parallel=4)
     blob = deploy.export_pipeline(pt, (2,) + tuple(SHAPE[1:]),
                                   data_parallel=2)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        deploy.load_pipeline(blob, device="cpu")
+    # a pipeline without convolutions: the export is fast
+    blob = deploy.export_pipeline(
+        rt.Pipeline("Bayer_02_Demosaic_01_sRGB_01", device="cpu"),
+        (2,) + tuple(SHAPE[1:]), data_parallel=2, space_parallel=2)
+    assert deploy.split_artifact(blob)[0]["mesh"] == {"data": 2, "space": 2}
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         deploy.load_pipeline(blob, device="cpu")
 
 

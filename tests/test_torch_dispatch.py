@@ -23,6 +23,7 @@ from reconfigisp_tpu_torch.utils.checkpoint import load_network
 from reconfigisp_tpu_torch.yolo import loss as yloss
 from reconfigisp_tpu_torch.yolo.cfg import yolov3_tiny_test_blocks
 from reconfigisp_tpu_torch.yolo.net import init_yolo
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 BANK = "experiments/proxies/default.ckpt"
 CFG = dict(lr_theta=1e-2, lr_alpha=1e-2, lr_meta=1e-2, momentum=0.9)

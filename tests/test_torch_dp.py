@@ -35,8 +35,11 @@ Cases and tolerances:
     (tests/test_torch_pipeline.py);
   * a data_parallel=2 artifact served by both ranks against
     make_serving_fn on the whole batch: 1e-6 (the same program on fewer
-    rows); loaded without a group it raises, and space_parallel=2 raises
-    NotImplementedError naming the ROADMAP item;
+    rows); loaded without a group it raises;
+  * IspTrainer over a (1, 2) mesh, the space axis on whole frames, 2 steps
+    of the flagship (fault F5 in ROADMAP.md: each rank stepped on its own
+    half frame): each rank's logits equal the other's and the JAX
+    trainer's within 1e-5, its losses within 1e-5 relative;
   * dryrun_multichip(2, "cpu"): its four checks run.
 """
 
@@ -64,6 +67,7 @@ from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils import losses
 from reconfigisp_tpu_torch.yolo import cfg as ycfg
 from reconfigisp_tpu_torch.yolo.net import YoloNet
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = "Bayer_01_Demosaic_03_sRGB_01_13_11"
 SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"
@@ -228,6 +232,19 @@ def _ft_run(share, mesh):
             "mids_rows": mesh_t.ft_data[0].shape[0]}
 
 
+def _isp_space_run(share):
+    """F5: the flagship over the (1, 2) mesh, 2 steps."""
+    mesh = meshlib.make_mesh(2, space=2)
+    pipe = rt.Pipeline(FLAGSHIP, device="cpu").load_state(
+        convert.state_from_jax(share["isp_state"][FLAGSHIP]))
+    trainer = IspTrainer(pipe, ISP_OPT, mesh=mesh)
+    losses_, logits = [], []
+    for batch in share["inputs"]["isp"][:2]:
+        losses_.append(trainer.train_step(batch)["loss"])
+        logits.append(convert.state_to_jax(pipe)["logits"])
+    return losses_, logits
+
+
 def _tiled_run(share):
     mesh = meshlib.make_mesh(2, space=2)
     pipe = rt.Pipeline(TILED_ARCH, device="cpu").load_state(
@@ -251,6 +268,7 @@ def _ranks(rank: int, root: str) -> None:
     out["yolo"] = _yolo_run(share, mesh)
     out["ft"] = _ft_run(share, mesh)
     out["tiled"] = _tiled_run(share)
+    out["isp_space"] = _isp_space_run(share)
     served = deploy.load_pipeline(os.path.join(root, "dp2.rispt"),
                                   device="cpu")
     out["served"] = served(share["inputs"]["serve_x"]).numpy()
@@ -475,6 +493,26 @@ def test_isp_trainer_over_the_mesh_matches_jax(dp, arch):
                                            rtol=0, err_msg=name)
 
 
+def test_isp_trainer_over_a_space_mesh_matches_jax(dp):
+    """F5: over a (1, 2) mesh both ranks step on the whole frame's
+    gradient (each runs its window and the criterion sees the gathered
+    frame), so their losses and logits equal JAX's single-device
+    trainer's after each of 2 steps, and the ranks' logits are equal."""
+    want_losses, want_logits = dp["ref"][FLAGSHIP]
+    got = [rank["isp_space"] for rank in dp["ranks"]]
+    for got_losses, got_logits in got:
+        np.testing.assert_allclose(got_losses, want_losses[:2], rtol=1e-5)
+        for step, want in enumerate(want_logits[:2]):
+            for name in want:
+                np.testing.assert_allclose(got_logits[step][name], want[name],
+                                           atol=1e-5, rtol=0,
+                                           err_msg=f"step {step} {name}")
+    for step in range(2):   # one state on every rank, bit for bit
+        for name in want_logits[0]:
+            np.testing.assert_array_equal(got[0][1][step][name],
+                                          got[1][1][step][name])
+
+
 def test_yolo_search_step_with_boxes_in_one_shard_matches_jax(dp):
     """Boxes in images 0-1 only: the second rank's shard has none, and the
     global object count and gate give JAX's whole-batch step."""
@@ -511,7 +549,8 @@ def test_tiled_apply_over_a_space_group_matches_jax(dp):
 def test_data_parallel_artifact_served_by_two_ranks(dp):
     """Each rank serves its 2 rows and gathers the 4; loaded without a
     group of 2 ranks the artifact raises, as JAX's does with too few
-    devices; a whole-frame space axis is not ported."""
+    devices (a space axis's: tests/test_torch_deploy.py::test_mesh_raises,
+    served over four ranks: tests/test_torch_space.py)."""
     header = deploy.split_artifact(open(dp["artifact"], "rb").read())[0]
     assert header["mesh"] == {"data": 2, "space": 1}
     assert header["input_shape"] == [4, 32, 32, 1]
@@ -520,8 +559,6 @@ def test_data_parallel_artifact_served_by_two_ranks(dp):
                                    rtol=0)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         deploy.load_pipeline(dp["artifact"], device="cpu")
-    with pytest.raises(NotImplementedError, match="whole-frame space axis"):
-        deploy.export_pipeline(dp["pipe"], (4, 32, 32, 1), space_parallel=2)
     with pytest.raises(ValueError, match="do not"):
         deploy.export_pipeline(dp["pipe"], (3, 32, 32, 1), data_parallel=2)
 

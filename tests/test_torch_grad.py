@@ -22,6 +22,7 @@ from reconfigisp_tpu_torch.ops import color
 from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.ops.nn import clip
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 SLICE = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"
 SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"

@@ -23,6 +23,7 @@ from reconfigisp_tpu_torch import precision, registry
 from reconfigisp_tpu_torch.convert import weights_from_jax
 from reconfigisp_tpu_torch.ops import cnn, color, conditional, demosaic, nn, tone
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 CKPT = str(Path(__file__).resolve().parents[1] / "experiments" / "proxies"
            / "default.ckpt")

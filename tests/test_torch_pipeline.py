@@ -20,6 +20,7 @@ import reconfigisp_tpu_torch as rt
 from reconfigisp_tpu_torch import convert, deploy
 from reconfigisp_tpu_torch.parallel import tiling
 from reconfigisp_tpu_torch.utils.checkpoint import load_network
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 SLICE = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"
 SLICE2 = "Bayer_01_Demosaic_03_sRGB_08_09_01_13_11"   # median, then fast NLM

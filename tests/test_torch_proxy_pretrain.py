@@ -38,6 +38,7 @@ from reconfigisp_tpu_torch import convert
 from reconfigisp_tpu_torch.registry import pool
 from reconfigisp_tpu_torch.search import proxy_pretrain as pp
 from reconfigisp_tpu_torch.utils import checkpoint
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 OPS = ("median", "laplacian", "path_bayer")   # plan order
 STEPS, BATCH, SIZE, SEED = 3, 2, 16, 4

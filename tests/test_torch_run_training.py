@@ -45,6 +45,7 @@ from reconfigisp_tpu_torch import config, registry
 from reconfigisp_tpu_torch.search import run_training
 from reconfigisp_tpu_torch.search.trainer import (
     _alpha_gap_summary, _probe_access_slack, dist_mesh)
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 K, N = 2, 4
 LOSS_RTOL = 1e-5

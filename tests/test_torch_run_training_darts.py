@@ -12,6 +12,7 @@ from reconfigisp_tpu_torch.search import run_training
 from test_torch_run_training import (  # noqa: F401  (fixtures)
     N, _options, _with, assert_resumed_run_matches_jax, latency_restored,
     runs)
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 
 def test_resumed_run_matches_jax(runs):

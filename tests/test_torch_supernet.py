@@ -26,6 +26,7 @@ from reconfigisp_tpu.utils.checkpoint import _to_numpy
 from reconfigisp_tpu_torch import convert, registry
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.utils import latency
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 # case -> (srgb_count, use_proxies).  15 holds the windowed ops 7-9 and
 # path_bgr natively; with proxies, 2-4 and 6-9 and bm3d run as one bank.

@@ -30,6 +30,7 @@ from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 from reconfigisp_tpu_torch.search import IspTrainer
 from reconfigisp_tpu_torch.utils import checkpoint, losses, metrics, schedule
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 FLAGSHIP = "Bayer_01_Demosaic_03_sRGB_01_13_11"
 SLICE = "Bayer_01_Demosaic_03_sRGB_07_01_13_11"

@@ -12,6 +12,7 @@ import torch
 
 from chip_smoke import BILATERAL_ROWS
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 
 def _image(shape, seed, lo=0.0, hi=1.0):

@@ -16,6 +16,7 @@ from reconfigisp_tpu_torch.ops import denoise
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 
 from test_torch_windowed_bilateral import assert_routes_agree
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 # jitted so that one compile per shape serves every block radius
 _NLM_REFS = {"jnp": jax.jit(jdenoise._fastnlm_jnp),

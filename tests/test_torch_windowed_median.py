@@ -20,6 +20,7 @@ from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
 from reconfigisp_tpu_torch.ops.kernels import median as km
 
 from test_torch_windowed_bilateral import assert_routes_agree
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 # jitted so that one compile per shape serves every radius
 _MEDIAN_REFS = {"jnp": jax.jit(jdenoise._median_jnp),

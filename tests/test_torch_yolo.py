@@ -47,6 +47,7 @@ from reconfigisp_tpu_torch.data import datasets, sampler
 from reconfigisp_tpu_torch.search.trainer import make_yolo_criterion
 from reconfigisp_tpu_torch.utils import imaging
 from reconfigisp_tpu_torch.yolo import cfg, loss, metrics, net as ynet
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 HEAD_TOL = 1e-5
 LOSS_RTOL = 1e-5

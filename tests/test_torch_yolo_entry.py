@@ -37,6 +37,7 @@ from reconfigisp_tpu_torch.data.datasets import SyntheticDetectionDataset
 from reconfigisp_tpu_torch.yolo import cfg, net as ynet, train
 
 from test_torch_cli import REPO, _run
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 PRETRAIN_LR = 3e-3
 WEIGHT_ATOL = 1e-5

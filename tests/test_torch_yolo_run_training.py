@@ -29,6 +29,7 @@ from reconfigisp_tpu.yolo import net as jnet
 from reconfigisp_tpu_torch import config
 from reconfigisp_tpu_torch.search import run_training
 from reconfigisp_tpu_torch.yolo import cfg, net as ynet
+from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 STEPS = 2
 LOSS_RTOL = 1e-5
