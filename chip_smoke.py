@@ -132,7 +132,26 @@ Phases, one line each:
      (c) configs/SID_search.yaml as written, 3 order-2 steps against 13b's
      serial run, and configs/SID_isp.yaml's slice 2, 3 steps against
      13d's; (d) dryrun_multichip over four gloo ranks on the card, a
-     (2, 2) mesh.
+     (2, 2) mesh;
+ 15. the method's accuracy tools and the real-scale rehearsal
+     (reconfigisp_tpu_torch/tools/), each a subprocess through run_cli
+     with its launches counted: (a) tools/planted_demo.py, seed 0, at
+     PLANTED_SMOKE's budgets (module pretraining, the native, proxy and
+     darts_ft searches of configs/planted_search*.yaml with one tuning
+     round, step-2 training of the searched architecture and its
+     ablations through configs/planted_isp.yaml, held-out PSNR), then
+     tools/ft_divergence.py: every decoded architecture builds, every loss
+     is finite, each step-2 training lowers the loss on its first batch
+     (or leaves a pipeline whose parameters get no gradient as it was),
+     and the searched architecture trained here scores the same held-out
+     PSNR on the card and on the CPU within EVAL_PSNR_TOL_DB; (b)
+     tools/rehearse_real_scale.py's SID leg (14-bit DNGs of 1424x2128
+     ingested, configs/SID_search.yaml, SID_isp.yaml, SID_test.yaml's
+     tiled test) and S7 leg (10-bit GRBG frames of 3024x4032 cropped to
+     RGGB, S7ISP_search_ft.yaml, S7ISP_isp.yaml, S7ISP_test.yaml) at
+     REHEARSAL_ITERS search and REHEARSAL_LEARN learning steps and one test
+     frame: the steps as asked, finite losses and test PSNR, the kernels'
+     launches exact.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -155,6 +174,7 @@ import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -188,6 +208,7 @@ from reconfigisp_tpu_torch.search.proxy_pretrain import pretrain_modules
 from reconfigisp_tpu_torch.search.trainer import (
     build_yolo_evaluator, dist_mesh, make_yolo_criterion)
 from reconfigisp_tpu_torch.supernet import SuperNet
+from reconfigisp_tpu_torch.tools import planted_demo
 from reconfigisp_tpu_torch.utils import latency
 from reconfigisp_tpu_torch.utils.checkpoint import load_network, save_network
 from reconfigisp_tpu_torch.yolo import cfg as ycfg
@@ -1261,7 +1282,7 @@ PRETRAIN_LAST_RTOL = 1e-1
 RECORD_FRAME = FRAME
 RECORD_PAIRS = 4
 ISP_STEPS, ISP_RESUMED, ISP_SAVE = 8, 12, 4
-SEARCH_CLI_STEPS, SEARCH_CLI_RESUMED = 4, 6
+SEARCH_CLI_STEPS, SEARCH_CLI_RESUMED = 3, 4   # 4, 6 until phase 15 came
 FT_CLI_STEPS = 3
 EVAL_FRAMES = 2
 EVAL_CHUNK = 4          # tiled_apply's default, which test.py takes
@@ -1499,7 +1520,8 @@ def phase_train_cli(tmp: Path, records: str, phase7_ms: float) -> dict:
 def phase_search_cli(tmp: Path, records: str, proxies: str,
                      phase8_ms: float) -> dict:
     """9c: step 1 through python -m reconfigisp_tpu_torch.train:
-    SID_search.yaml on the records (4 steps, resumed to 6), and
+    SID_search.yaml on the records (SEARCH_CLI_STEPS steps, resumed to
+    SEARCH_CLI_RESUMED), and
     planted_search_ft.yaml from 9a's proxies (3 steps, one tuning round);
     -> the launches."""
     total = {name: 0 for name in KERNELS}
@@ -1660,10 +1682,11 @@ YOLO_TEST = ROOT / "configs" / "yolo_test.yaml"
 # in place of the OnePlus folders (YOLO_FRAMES for the search, the batch for
 # training, YOLO_TEST_FRAMES for evaluation); the port's seeded YOLOv3 init,
 # written as a darknet file, in place of yolov3.weights; steps: the search
-# 3 then resumed to 4 of 40,000 through train.py and 2 in process (cut from
-# 3 when phase 14 came, to hold the script's time), training 4 of 8,000.
+# 2 then resumed to 3 of 40,000 through train.py (3 and 4 until phase 15
+# came) and 2 in process (cut from 3 when phase 14 came), training 4 of
+# 8,000: cuts to hold the script's time.
 YOLO_FRAMES = 16
-YOLO_SEARCH_STEPS, YOLO_SEARCH_RESUMED = 3, 4
+YOLO_SEARCH_STEPS, YOLO_SEARCH_RESUMED = 2, 3
 YOLO_INPROC_STEPS = 2
 YOLO_ISP_STEPS = 4
 YOLO_TEST_FRAMES = 4
@@ -2357,8 +2380,9 @@ def phase_deployment(dev, bank) -> dict:
 # SID_search's 200,000, ORDER1_DISPATCH_STEPS of planted_search's 1,500,
 # 2 + 2 of planted_search_ft's with one tuning round between, and
 # YOLO_INPROC_STEPS of yolo_search's 40,000; the geometry is the configs'.
-DISPATCH_STEPS = 6           # 12a: steps per run (8 until phase 14 came)
-DISPATCH_TIMED_FROM = 2      # 12a: steps 3-6 timed (eager and K = 1)
+DISPATCH_STEPS = 5           # 12a: steps per run (8, then 6, until phases
+                             # 14 and 15 came)
+DISPATCH_TIMED_FROM = 2      # 12a: steps 3-5 timed (eager and K = 1)
 DISPATCH_K = 4               # 12a: steps a dispatch of the K-step run
 ORDER1_DISPATCH_STEPS = 4    # 12b
 FT_DISPATCH_STEPS = 2        # 12c: steps before and after finetune_proxies
@@ -2555,8 +2579,8 @@ def phase_dispatch_sid(dev, bank) -> dict:
                 name: 15 for name in KERNELS}:
             raise AssertionError(f"captured K={k}: launches {run['launches']}"
                                  f", a replay {graph.launches}")
-        # K = 1 logs every step; K = 4 returns step 4's logs at steps 4-5
-        # and step 6's after the flush
+        # K = 1 logs every step; K = 4 returns step 4's logs at step 4 and
+        # step 5's after the flush
         if k == 1:
             got_logs, ref_logs = run["logs"], ref["logs"]
         else:
@@ -3309,6 +3333,183 @@ def phase_space(dev, ranks: list, ref: dict) -> dict:
     return total
 
 
+# ----------------------------------------------------------------- phase 15
+
+# Phase 15: the method's accuracy tools and the real-scale rehearsal
+# (reconfigisp_tpu_torch/tools/), in subprocesses through run_cli, 15a's
+# beside 15b's.
+# Cuts (steps, never geometry): the planted demo's pretraining 20 of 3,000
+# steps, 6 of 1,500 search steps a leg (darts_ft's tuning interval 50 cut to
+# 6, so one round fires), 20 of 800 step-2 steps (and of ft_divergence's
+# 700), 4 of 16 held-out frames; the rehearsal's search 2 of 600 steps
+# (S7's tuning interval is the tool's own, max(2, min(50, iters // 2))),
+# learning 3 of 1,200, one test frame a leg, every frame at full size.
+PLANTED_SMOKE = {"--pretrain-steps": 20, "--search-iters": 6,
+                 "--ft-interval": 6, "--isp-iters": 20, "--eval-frames": 4}
+PLANTED_FT_STEPS = 4         # planted_search_ft.yaml's ft_steps
+REHEARSAL_ITERS, REHEARSAL_LEARN = 2, 3
+REHEARSAL_FT_STEPS = 2       # the rehearsal's S7 ft_steps
+# Held-out PSNR of one trained state on the card against the CPU.  The
+# outputs differ by the convs' summation order (ZOO_TOL bounds a pipeline's
+# values at 1e-4; about 1e-6 in phase 5): a difference d moves a PSNR by
+# about (10 / ln 10) 2 d / r, 2e-4 dB for d = 1e-6 and residuals r = 0.05;
+# 5x over that.
+EVAL_PSNR_TOL_DB = 1e-3
+
+
+def _finite(*values) -> bool:
+    return all(v is not None and math.isfinite(float(v)) for v in values)
+
+
+def _planted_clis(out: Path) -> tuple:
+    """tools/planted_demo.py at PLANTED_SMOKE's budgets, seed 0, then
+    tools/ft_divergence.py, into `out` -> their run_cli results."""
+    budget = [a for k, v in PLANTED_SMOKE.items() for a in (k, str(v))]
+    demo = run_cli("reconfigisp_tpu_torch.tools.planted_demo", "--seeds",
+                   "0", *budget, "--out", str(out), timeout=900)
+    ft = run_cli("reconfigisp_tpu_torch.tools.ft_divergence", "--isp-iters",
+                 str(PLANTED_SMOKE["--isp-iters"]), "--eval-frames",
+                 str(PLANTED_SMOKE["--eval-frames"]), "--out", str(out))
+    return demo, ft
+
+
+def phase_planted(dev, out: Path, demo: dict, ft: dict) -> dict:
+    """15a, on _planted_clis' runs into `out`: every decoded architecture
+    builds, every loss is finite, each step-2 training lowers its loss on
+    its first batch (or moves no parameter, none getting a gradient), and
+    the searched architecture's trained state scores the same held-out PSNR
+    on the card and on the CPU.  -> the kernels' launches of both
+    processes."""
+    t0 = time.perf_counter()
+    res = json.loads((out / "results.json").read_text())
+    seed = res["seeds"]["0"]
+    if res["device"].get("type") != "cuda" or not res["device"]["nvidia_smi"]:
+        raise AssertionError(f"15a device record: {res['device']}")
+    for leg in ("native", "proxy", "ft"):
+        rec = seed[f"search_{leg}"]
+        line("phase 15a search", leg=leg, arch=rec["architecture"],
+             iters=rec["iters"], loss=f"{rec['loss']:.6e}",
+             val_loss=f"{rec['val_loss']:.6e}", s=rec["seconds"])
+        Pipeline(rec["architecture"], device=dev)
+        if rec["iters"] != PLANTED_SMOKE["--search-iters"] or not _finite(
+                rec["loss"], rec["val_loss"]):
+            raise AssertionError(f"15a {leg} search: {rec}")
+    trained = {**seed["step2_psnr"],
+               **{f"ft_divergence_{k}": v
+                  for k, v in seed["leg_arch_psnr"].items()}}
+    for what, rec in trained.items():
+        line("phase 15a step 2", what=what, arch=rec["architecture"],
+             steps=PLANTED_SMOKE["--isp-iters"],
+             train_loss=f"{rec['train_loss']:.6e}",
+             probe_loss=f"{rec['probe_loss_start']:.6e}->"
+                        f"{rec['probe_loss_final']:.6e}",
+             logits_moved=f"{rec['logits_moved']:.3e}",
+             psnr_db=f"{rec['psnr']:.4f}")
+        Pipeline(rec["architecture"], device=dev)
+        # the loss falls, unless no parameter of the pipeline gets a
+        # gradient (whiteworld's quantile, the median's radius) and so the
+        # pipeline is left as it was
+        falls = (rec["probe_loss_final"] < rec["probe_loss_start"]
+                 if rec["logits_moved"] > 0 else
+                 rec["probe_loss_final"] == rec["probe_loss_start"])
+        if not (_finite(rec["train_loss"], rec["psnr"]) and falls):
+            raise AssertionError(f"15a step 2 {what}: {rec}")
+    gap = res["ft_divergence_psnr_gap_db"]
+    if not _finite(gap["mean"], res["margin_db"]):
+        raise AssertionError(f"15a: margin {res['margin_db']}, gap {gap}")
+
+    arch = seed["search_native"]["architecture"]
+    pipe, _ = planted_demo.train_fixed(
+        arch, PLANTED_SMOKE["--isp-iters"], proxies=str(out / "proxies.ckpt"),
+        device=dev)
+    n = PLANTED_SMOKE["--eval-frames"]
+    card = planted_demo.eval_psnr(pipe, n=n)
+    cpu = planted_demo.eval_psnr(Pipeline(arch, device="cpu").load_state(
+        convert.state_from_jax(convert.state_to_jax(pipe))), n=n)
+    launches = {name: demo["launches"][name] + ft["launches"][name]
+                for name in KERNELS}
+    least = {name: PLANTED_SMOKE["--pretrain-steps"]
+             + 15 * PLANTED_SMOKE["--search-iters"] + PLANTED_FT_STEPS
+             for name in KERNELS}
+    line("phase 15a planted", arch=arch, margin_db=res["margin_db"],
+         ft_gap_db=gap["mean"], card_psnr_db=f"{card:.6f}",
+         cpu_psnr_db=f"{cpu:.6f}", diff_db=f"{abs(card - cpu):.3e}",
+         tol_db=EVAL_PSNR_TOL_DB, demo_s=f"{demo['seconds']:.1f}",
+         ft_divergence_s=f"{ft['seconds']:.1f}",
+         launches=json.dumps(launches).replace(" ", ""),
+         at_least=json.dumps(least).replace(" ", ""),
+         check_s=f"{time.perf_counter() - t0:.1f}")
+    if not abs(card - cpu) <= EVAL_PSNR_TOL_DB:
+        raise AssertionError(f"15a eval_psnr: card {card}, cpu {cpu}")
+    if any(launches[name] < least[name] for name in KERNELS):
+        raise AssertionError(f"15a launches {launches} < {least}")
+    return launches
+
+
+def _rehearsal_cli(out: Path) -> dict:
+    """tools/rehearse_real_scale.py's SID and S7 legs at full frame size,
+    REHEARSAL_ITERS search and REHEARSAL_LEARN learning steps, into `out`
+    -> its run_cli result."""
+    return run_cli("reconfigisp_tpu_torch.tools.rehearse_real_scale",
+                   "--legs", "sid,s7", "--iters", str(REHEARSAL_ITERS),
+                   "--learn-iters", str(REHEARSAL_LEARN), "--out", str(out),
+                   timeout=900)
+
+
+def phase_rehearsal(out: Path, run: dict) -> dict:
+    """15b, on _rehearsal_cli's run into `out`: the steps as asked, finite
+    losses and test PSNR (one tiled frame a leg); the kernels launch 15 a
+    SID search step and once a step of S7's tuning round.  -> the kernels'
+    launches."""
+    res = json.loads((out / "results.json").read_text())
+    for leg, search in (("sid", "search"), ("s7", "search_ft")):
+        s, isp, test = res[leg][search], res[leg]["isp"], res[leg]["test"]
+        line(f"phase 15b {leg}", search_arch=s["architecture"],
+             search_steps=s["steps_run"], search_loss=f"{s['loss']:.6e}",
+             search_steady_s=s["steady_s_per_iter"],
+             isp_steps=isp["steps_run"],
+             isp_loss=f"{isp['loss_first']:.6e}->{isp['loss']:.6e}",
+             isp_val_psnr=f"{isp['val_psnr_start']:.3f}->"
+                          f"{isp['val_psnr_final']:.3f}",
+             isp_steady_s=isp["steady_s_per_iter"],
+             test_psnr_mean=test.get("psnr_mean"))
+        if not (s["steps_run"] == REHEARSAL_ITERS
+                and isp["steps_run"] == REHEARSAL_LEARN
+                and _finite(s["loss"], s["loss_first"], isp["loss"],
+                            isp["loss_first"], isp["val_psnr_final"],
+                            test.get("psnr_mean"))):
+            raise AssertionError(f"15b {leg}: {res[leg]}")
+    expected = {name: 15 * REHEARSAL_ITERS + REHEARSAL_FT_STEPS
+                for name in KERNELS}
+    line("phase 15b launches", launches=json.dumps(run["launches"])
+         .replace(" ", ""), expected=json.dumps(expected).replace(" ", ""),
+         peak_mib=f"{run['peak_bytes'] / 2**20:.0f}",
+         seconds=f"{run['seconds']:.1f}")
+    if run["launches"] != expected:
+        raise AssertionError(f"15b launches {run['launches']} != {expected}")
+    return run["launches"]
+
+
+def phase_accuracy(dev, tmp: Path) -> dict:
+    """Phase 15: 15a's and 15b's processes side by side (each counts its
+    own launches; the card and the host's cores have room for both), then
+    their checks -> the kernels' launches of both."""
+    t0 = time.perf_counter()
+    planted_out, rehearsal_out = tmp / "planted", tmp / "rehearsal"
+    with ThreadPoolExecutor(2) as pool:
+        planted_runs = pool.submit(_planted_clis, planted_out)
+        rehearsal_run = pool.submit(_rehearsal_cli, rehearsal_out)
+        demo, ft = planted_runs.result()
+        run = rehearsal_run.result()
+    planted = phase_planted(dev, planted_out, demo, ft)
+    rehearsal = phase_rehearsal(rehearsal_out, run)
+    total = {name: planted[name] + rehearsal[name] for name in KERNELS}
+    line("phase 15 launches", planted=json.dumps(planted).replace(" ", ""),
+         rehearsal=json.dumps(rehearsal).replace(" ", ""),
+         seconds=f"{time.perf_counter() - t0:.1f}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3344,6 +3545,7 @@ def main() -> int:
         dp_launches, space_runs = phase_data_parallel(dev, bank, tmp,
                                                       dispatch_ms)
         space_launches = phase_space(dev, *space_runs)
+        accuracy_launches = phase_accuracy(dev, tmp)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -3358,6 +3560,7 @@ def main() -> int:
         "graph_launches": graph_launches[name],
         "dp_launches": dp_launches[name],
         "space_launches": space_launches[name],
+        "accuracy_launches": accuracy_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
