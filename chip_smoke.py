@@ -151,7 +151,16 @@ Phases, one line each:
      RGGB, S7ISP_search_ft.yaml, S7ISP_isp.yaml, S7ISP_test.yaml) at
      REHEARSAL_ITERS search and REHEARSAL_LEARN learning steps and one test
      frame: the steps as asked, finite losses and test PSNR, the kernels'
-     launches exact.
+     launches exact;
+ 16. the rehearsal's OnePlus/YOLO leg (tools/rehearse_real_scale.py
+     --legs yolo), a subprocess beside phase 15's, cv2 unimportable: two
+     3000x4000 10-bit mosaics written as 16-bit PNGs with labelme JSONs,
+     an 80-class YOLOv3 darknet file pretrained YOLO_LEG's criterion steps
+     on the letterboxed scenes and read back for its self-check,
+     configs/yolo_search.yaml, yolo_isp.yaml and yolo_test.yaml's 1024
+     test on the OnePlus loader (PNG reads and area resizes without cv2):
+     the first PNG read back equal to its mosaic, the steps as asked,
+     finite losses, `map=` printed, the kernels' launches exact.
 Then one JSON line with the kernels and, last, the device line.  Every check
 raises on failure; without CUDA the script exits 1 before printing a result.
 The tools/profile_torch_*.py and tools/time_torch_padding.py scripts import
@@ -209,7 +218,8 @@ from reconfigisp_tpu_torch.search.trainer import (
     build_yolo_evaluator, dist_mesh, make_yolo_criterion)
 from reconfigisp_tpu_torch.supernet import SuperNet
 from reconfigisp_tpu_torch.tools import planted_demo
-from reconfigisp_tpu_torch.utils import latency
+from reconfigisp_tpu_torch.tools import rehearse_real_scale as rehearsal
+from reconfigisp_tpu_torch.utils import latency, png
 from reconfigisp_tpu_torch.utils.checkpoint import load_network, save_network
 from reconfigisp_tpu_torch.yolo import cfg as ycfg
 from reconfigisp_tpu_torch.yolo import train as ytrain
@@ -1586,11 +1596,21 @@ def phase_search_cli(tmp: Path, records: str, proxies: str,
     return {"launches": total}
 
 
+def png_err(frame_u8: np.ndarray, want: np.ndarray) -> float:
+    """How far a float frame in [0, 1] lies outside the rounding interval
+    of each pixel of an 8-bit PNG: 0 where tensor2bgr(want) writes the
+    file's values, else at least the float difference that moved them (the
+    most an 8-bit file shows of a difference from `want`)."""
+    written = frame_u8.astype(np.float64) / 255.0
+    return float(np.maximum(np.abs(np.clip(want, 0.0, 1.0) - written)
+                            - 0.5 / 255.0, 0.0).max())
+
+
 def phase_eval_cli(dev, tmp: Path, records: str, checkpoint: str) -> dict:
     """9d: python -m reconfigisp_tpu_torch.test at SID_test.yaml's split
     geometry on EVAL_FRAMES full frames of the records with 9b's network,
-    f32 then bf16 storage; the first frame held against make_serving_fn's
-    on the same weights; -> the launches."""
+    f32 then bf16 storage; the first frame's PNG held against
+    make_serving_fn's output on the same weights; -> the launches."""
     outs, total = {}, {name: 0 for name in KERNELS}
     for storage in ("f32", "bf16"):
         opt = yaml.safe_load(SID_TEST.read_text())
@@ -1599,8 +1619,8 @@ def phase_eval_cli(dev, tmp: Path, records: str, checkpoint: str) -> dict:
         opt["datasets"]["test"]["dataroot"] = records
         opt["precision"] = storage
         opt["path"] = {"root": str(tmp), "pretrain_model_G": checkpoint}
-        # without cv2, test.py keeps each output frame as float32 .npy (not
-        # an 8-bit PNG), which the check below holds to E2E_TOL
+        # test.py writes each output frame as an 8-bit PNG (utils/png, no
+        # cv2), which the check below holds to E2E_TOL as far as 8 bits show
         run = run_cli("reconfigisp_tpu_torch.test", "--opt",
                       _write_options(tmp / f"test_{storage}.yaml", opt),
                       "--max-images", str(EVAL_FRAMES), without=("cv2",))
@@ -1624,7 +1644,7 @@ def phase_eval_cli(dev, tmp: Path, records: str, checkpoint: str) -> dict:
                 or run["launches"] != expected:
             raise AssertionError(f"test.py {storage}: psnr {psnr_mean}, "
                                  f"{frame_ms}, launches {run['launches']}")
-        outs[storage] = np.load(tmp / "results" / opt["name"] / "0000.npy")
+        outs[storage] = png.read(tmp / "results" / opt["name"] / "0000.png")
         for name in KERNELS:
             total[name] += run["launches"][name]
 
@@ -1635,8 +1655,9 @@ def phase_eval_cli(dev, tmp: Path, records: str, checkpoint: str) -> dict:
     serve = make_serving_fn(pipe, patch=PATCH, stride=STRIDE,
                             chunk=EVAL_CHUNK, device=dev)
     want = serve(sample["noisy"][None])[0].cpu().numpy()
-    diff = float(np.abs(outs["f32"] - want).max())
-    bf16_diff = float(np.abs(outs["bf16"] - outs["f32"]).max())
+    diff = png_err(outs["f32"], want)
+    bf16_diff = float(np.abs(outs["bf16"].astype(np.int64)
+                             - outs["f32"]).max()) / 255.0
     line("phase 9d test.py vs make_serving_fn", frame=tuple(want.shape),
          max_abs_diff=f"{diff:.3e}", tol=E2E_TOL,
          bf16_vs_f32=f"{bf16_diff:.3e}", bf16_tol=BF16_TOL,
@@ -1650,8 +1671,8 @@ def phase_entry_points(dev, bank, phase7_ms: float, phase8_ms: float,
                        tmp: Path):
     """Phase 9: the port's entry points on the card, each counted from 0
     in its own process: 9a proxy pretraining (in this process), 9b step 2,
-    9c step 1, 9d evaluation, under `tmp`, where the records and 9c's run
-    stay for phase 13e.  -> {"pretrain": launches, "entry": launches of
+    9c step 1 (beside 9b and 9d), 9d evaluation, under `tmp`, where the
+    records and 9c's run stay for phase 13e.  -> {"pretrain": launches, "entry": launches of
     9b-9d}."""
     t0 = time.perf_counter()
     pre = phase_pretrain(dev, bank, tmp)
@@ -1659,9 +1680,14 @@ def phase_entry_points(dev, bank, phase7_ms: float, phase8_ms: float,
     line("phase 9 records", pairs=RECORD_PAIRS, frame=RECORD_FRAME,
          mib=f"{sum(f.stat().st_size for f in (tmp / 'records').iterdir()) / 2**20:.1f}",
          seconds=f"{time.perf_counter() - t0:.2f}")
-    train = phase_train_cli(tmp, records, phase7_ms)
-    search = phase_search_cli(tmp, records, pre["checkpoint"], phase8_ms)
-    evals = phase_eval_cli(dev, tmp, records, train["checkpoint"])
+    # 9c's processes beside 9b's and 9d's (9d reads 9b's checkpoint): their
+    # s a step are taken under each other's load
+    with ThreadPoolExecutor(1) as pool:
+        searched = pool.submit(phase_search_cli, tmp, records,
+                               pre["checkpoint"], phase8_ms)
+        train = phase_train_cli(tmp, records, phase7_ms)
+        evals = phase_eval_cli(dev, tmp, records, train["checkpoint"])
+        search = searched.result()
     entry = {name: train["launches"][name] + search["launches"][name]
              + evals["launches"][name] for name in KERNELS}
     line("phase 9 launches", pretrain=json.dumps(pre["launches"])
@@ -1818,11 +1844,10 @@ def _yolo_batch(opt: dict, start: int, n: int, dev) -> dict:
             for k in ("noisy", "label")}
 
 
-def phase_yolo_search(dev, bank, tmp: Path, weights: str) -> dict:
+def phase_yolo_search_cli(tmp: Path, weights: str) -> dict:
     """10a: configs/yolo_search.yaml through python -m
     reconfigisp_tpu_torch.train (YOLO_SEARCH_STEPS, then resumed to
-    YOLO_SEARCH_RESUMED), then in process with the kernels and with the
-    plain forms; the argmax architecture served.  -> launches."""
+    YOLO_SEARCH_RESUMED).  -> launches."""
     total = {name: 0 for name in KERNELS}
     dataset = {"n": YOLO_FRAMES}
     for niter in (YOLO_SEARCH_STEPS, YOLO_SEARCH_RESUMED):
@@ -1855,7 +1880,14 @@ def phase_yolo_search(dev, bank, tmp: Path, weights: str) -> dict:
             raise AssertionError("darts_yolo did not resume")
         for name in KERNELS:
             total[name] += run["launches"][name]
+    return total
 
+
+def phase_yolo_search(dev, bank, tmp: Path, weights: str) -> dict:
+    """10a: configs/yolo_search.yaml in process with the kernels and with
+    the plain forms; the argmax architecture served.  -> launches."""
+    total = {name: 0 for name in KERNELS}
+    dataset = {"n": YOLO_FRAMES}
     opt = config.parse_dict(_yolo_options(YOLO_SEARCH, tmp, weights, dataset),
                             root=str(tmp))
     n, size = opt["datasets"]["train"]["batch_size"], \
@@ -2002,8 +2034,8 @@ def phase_yolo_eval(dev, tmp: Path, weights: str, checkpoint: str) -> dict:
     """10c: configs/yolo_test.yaml (whole 1024x1024 frames, conf_thres
     0.005) through python -m reconfigisp_tpu_torch.test on
     YOLO_TEST_FRAMES synthetic frames with 10b's slice 2 network; the first
-    frame's detections held against an in-process decode and NMS of its
-    output.  -> launches."""
+    frame run again in process: its PNG held against that output, its
+    detections against an in-process decode and NMS.  -> launches."""
     opt = _yolo_options(YOLO_TEST, tmp, weights, {"n": YOLO_TEST_FRAMES})
     opt["network_G"]["architecture"] = SLICE2
     opt["path"]["pretrain_model_G"] = checkpoint
@@ -2017,27 +2049,37 @@ def phase_yolo_eval(dev, tmp: Path, weights: str, checkpoint: str) -> dict:
     expected = {name: YOLO_TEST_FRAMES if name in PATHS[SLICE2] else 0
                 for name in KERNELS}
     results = tmp / "results" / opt["name"]
-    frame = np.load(results / "0000.npy")
+    frame_png = png.read(results / "0000.png")
     dets = np.load(results / "0000_dets.npy")
+    # the first frame again in process, the output the file was written from
+    pipe = Pipeline(SLICE2, device=dev)
+    pipe.load_state(convert.state_from_jax(load_network(checkpoint)))
+    pipe.eval()
+    sample = create_dataset(dict(ds, is_train=False))[0]
     detector = build_yolo_evaluator(opt["yolo"], dev)
-    with torch.no_grad():
-        heads = detector(torch.from_numpy(frame)[None].to(dev).flip(-1))
+    with torch.inference_mode():
+        frame = pipe(torch.from_numpy(sample["noisy"][None]).to(dev))[0]
+        heads = detector(frame[None].float().flip(-1))
+        frame = frame.float().cpu().numpy()
     want = ytrain.detections(heads, frame.shape[0], ds["conf_thres"])[0]
     diff = float(np.abs(dets - want).max()) if dets.shape == want.shape \
         else math.inf
+    frame_diff = png_err(frame_png, frame)
     line("phase 10c test.py isp_yolo", config="yolo_test.yaml", arch=SLICE2,
          frames=YOLO_TEST_FRAMES, frame=tuple(frame.shape),
          conf_thres=ds["conf_thres"], map=found[-1] if found else None,
          detections=len(dets), ms_per_frame=",".join(f"{v:.3f}"
                                                      for v in frame_ms),
          dets_vs_in_process=f"{diff:.3e}", dets_tol=YOLO_DETS_TOL,
+         png_vs_in_process=f"{frame_diff:.3e}", png_tol=E2E_TOL,
          peak_mib=f"{run['peak_bytes'] / 2**20:.1f}",
          process_s=f"{run['seconds']:.2f}",
          launches=json.dumps(run["launches"]).replace(" ", ""))
     if len(found) != 1 or not math.isfinite(float(found[0])) \
             or len(frame_ms) != YOLO_TEST_FRAMES \
             or run["launches"] != expected or not diff <= YOLO_DETS_TOL \
-            or frame.shape != (ds["data_size"], ds["data_size"], 3):
+            or not frame_diff <= E2E_TOL \
+            or frame_png.shape != (ds["data_size"], ds["data_size"], 3):
         raise AssertionError(f"yolo test.py: map {found}, frames {frame_ms}, "
                              f"launches {run['launches']}, dets {diff}")
     return run["launches"]
@@ -2050,13 +2092,23 @@ def phase_yolo(dev, bank) -> dict:
         tmp = Path(root)
         t0 = time.perf_counter()
         blocks, weights = write_yolo_weights(tmp)
-        phase_yolo_card_vs_cpu(dev, blocks, weights)
-        search = phase_yolo_search(dev, bank, tmp, weights)
-        training = phase_yolo_training(dev, bank, tmp, weights)
-        evals = phase_yolo_eval(dev, tmp, weights, training["checkpoint"])
-        total = {name: search[name] + training["launches"][name]
-                 + evals[name] for name in KERNELS}
-        line("phase 10 launches", search=json.dumps(search).replace(" ", ""),
+        # 10a's CLI processes beside the in-process runs: the ms a step,
+        # TFLOP/s and process seconds of phase 10 are taken under each
+        # other's load
+        with ThreadPoolExecutor(1) as pool:
+            clis = pool.submit(phase_yolo_search_cli, tmp, weights)
+            phase_yolo_card_vs_cpu(dev, blocks, weights)
+            search = phase_yolo_search(dev, bank, tmp, weights)
+            training = phase_yolo_training(dev, bank, tmp, weights)
+            evals = phase_yolo_eval(dev, tmp, weights,
+                                    training["checkpoint"])
+            search_cli = clis.result()
+        total = {name: search_cli[name] + search[name]
+                 + training["launches"][name] + evals[name]
+                 for name in KERNELS}
+        line("phase 10 launches",
+             search_cli=json.dumps(search_cli).replace(" ", ""),
+             search=json.dumps(search).replace(" ", ""),
              train=json.dumps(training["launches"]).replace(" ", ""),
              eval=json.dumps(evals).replace(" ", ""),
              seconds=f"{time.perf_counter() - t0:.2f}")
@@ -3138,10 +3190,15 @@ def phase_data_parallel(dev, bank, tmp: Path, phase12_ms: float) -> dict:
         seconds.append(f"{time.perf_counter() - t0:.1f}")
         return out
 
-    dry = timed(phase_dp_dryrun)
-    ranks, serial_ms, space_runs = timed(phase_dp_ranks, dev, bank, tmp)
-    nccl = timed(phase_dp_nccl, tmp, serial_ms, phase12_ms)
-    cli = timed(phase_dp_cli, tmp)
+    # 13a's dry run and 13e's torchrun, processes of their own, beside 13b-d
+    # and 13f's spawn and 13c's: their times are taken under each other's
+    # load
+    with ThreadPoolExecutor(1) as pool:
+        side = pool.submit(lambda: (timed(phase_dp_dryrun),
+                                    timed(phase_dp_cli, tmp)))
+        ranks, serial_ms, space_runs = timed(phase_dp_ranks, dev, bank, tmp)
+        nccl = timed(phase_dp_nccl, tmp, serial_ms, phase12_ms)
+        dry, cli = side.result()
     total = {name: sum(p[name] for p in (dry, ranks, nccl, cli))
              for name in KERNELS}
     line("phase 13 launches", ranks=json.dumps(total).replace(" ", ""),
@@ -3490,24 +3547,101 @@ def phase_rehearsal(out: Path, run: dict) -> dict:
     return run["launches"]
 
 
-def phase_accuracy(dev, tmp: Path) -> dict:
-    """Phase 15: 15a's and 15b's processes side by side (each counts its
-    own launches; the card and the host's cores have room for both), then
-    their checks -> the kernels' launches of both."""
+# ----------------------------------------------------------------- phase 16
+
+# Phase 16: the rehearsal's OnePlus/YOLO leg (tools/rehearse_real_scale.py
+# --legs yolo) in a subprocess through run_cli, cv2 unimportable, beside
+# phase 15's two.  Cuts (steps, never geometry): the criterion's
+# pretraining 20 of 1,000 steps, the detection search 2 of 100, step 2 4 of
+# 1,000 (the tool's floor), every frame at 3000x4000 and the test on the
+# fixtures' 2 frames at 1024.
+YOLO_LEG = {"--iters": 2, "--learn-iters": 4, "--criterion-iters": 20,
+            "--yolo-search-iters": 2}
+
+
+def _yolo_leg_cli(out: Path) -> dict:
+    """The rehearsal's OnePlus/YOLO leg at YOLO_LEG's budgets, full frame
+    size, into `out` -> its run_cli result."""
+    budget = [a for k, v in YOLO_LEG.items() for a in (k, str(v))]
+    return run_cli("reconfigisp_tpu_torch.tools.rehearse_real_scale",
+                   "--legs", "yolo", *budget, "--out", str(out),
+                   without=("cv2",), timeout=900)
+
+
+def phase_yolo_leg(out: Path, run: dict) -> dict:
+    """16, on _yolo_leg_cli's run into `out`: the first fixture's PNG read
+    back equal to the mosaic drawn again here, the steps as asked, finite
+    losses, the criterion's self-check, the test's `map=`, and the kernels'
+    launches exact (15 a search step; yolo_isp.yaml's and yolo_test.yaml's
+    pipeline has no kernel op).  -> the kernels' launches."""
+    t0 = time.perf_counter()
+    res = json.loads((out / "results.json").read_text())
+    if res["device"].get("type") != "cuda" or not res["device"]["nvidia_smi"]:
+        raise AssertionError(f"16 device record: {res['device']}")
+    *_, mosaic = rehearsal.oneplus_frames(1)[0]
+    frame = png.read(out / "data" / "oneplus" / "000.png")
+    same = frame.dtype == mosaic.dtype and frame.shape == mosaic.shape \
+        and bool(np.array_equal(frame, mosaic))
+    line("phase 16 fixtures", frame=frame.shape, dtype=frame.dtype,
+         max=int(frame.max()), png_equals_mosaic=same,
+         png_mb=f"{(out / 'data' / 'oneplus' / '000.png').stat().st_size / 1e6:.1f}",
+         check_s=f"{time.perf_counter() - t0:.1f}")
+    leg = res["yolo"]
+    crit, s, isp, test = (leg["criterion_pretrain"], leg["search"],
+                          leg["isp"], leg["test"])
+    line("phase 16 criterion", steps=crit["iters"],
+         loss=f"{crit['loss_first']}->{crit['loss']}",
+         selfcheck_top_conf=crit["selfcheck_top_conf"],
+         compile_s=crit["compile_s"], steady_s=crit["steady_s_per_iter"])
+    line("phase 16 search", arch=s["architecture"], steps=s["steps_run"],
+         loss=f"{s['loss_first']:.6e}->{s['loss']:.6e}",
+         compile_s=s["compile_s"], steady_s=s["steady_s_per_iter"])
+    line("phase 16 isp", steps=isp["steps_run"],
+         loss=f"{isp['loss_first']:.6e}->{isp['loss']:.6e}",
+         probe_loss=f"{isp['probe_loss_start']:.6e}->"
+                    f"{isp['probe_loss_final']:.6e}",
+         compile_s=isp["compile_s"], steady_s=isp["steady_s_per_iter"])
+    line("phase 16 test", map=test.get("map"))
+    if not (same and crit["iters"] == YOLO_LEG["--criterion-iters"]
+            and s["steps_run"] == YOLO_LEG["--yolo-search-iters"]
+            and isp["steps_run"] == YOLO_LEG["--learn-iters"]
+            and _finite(crit["loss_first"], crit["loss"],
+                        crit["selfcheck_top_conf"], s["loss_first"],
+                        s["loss"], isp["loss_first"], isp["loss"],
+                        test.get("map"))):
+        raise AssertionError(f"16: png {same}, {leg}")
+    expected = {name: 15 * YOLO_LEG["--yolo-search-iters"]
+                for name in KERNELS}
+    line("phase 16 launches", launches=json.dumps(run["launches"])
+         .replace(" ", ""), expected=json.dumps(expected).replace(" ", ""),
+         peak_mib=f"{run['peak_bytes'] / 2**20:.0f}",
+         seconds=f"{run['seconds']:.1f}")
+    if run["launches"] != expected:
+        raise AssertionError(f"16 launches {run['launches']} != {expected}")
+    return run["launches"]
+
+
+def phase_tools(dev, tmp: Path) -> tuple:
+    """Phases 15 and 16: 15a's, 15b's and 16's processes side by side (each
+    counts its own launches; the card and the host's cores have room for
+    them), then their checks -> (15's launches, 16's launches)."""
     t0 = time.perf_counter()
     planted_out, rehearsal_out = tmp / "planted", tmp / "rehearsal"
-    with ThreadPoolExecutor(2) as pool:
+    yolo_out = tmp / "rehearsal_yolo"
+    with ThreadPoolExecutor(3) as pool:
         planted_runs = pool.submit(_planted_clis, planted_out)
         rehearsal_run = pool.submit(_rehearsal_cli, rehearsal_out)
+        yolo_run = pool.submit(_yolo_leg_cli, yolo_out)
         demo, ft = planted_runs.result()
         run = rehearsal_run.result()
+        yolo = yolo_run.result()
     planted = phase_planted(dev, planted_out, demo, ft)
-    rehearsal = phase_rehearsal(rehearsal_out, run)
-    total = {name: planted[name] + rehearsal[name] for name in KERNELS}
+    rehearsed = phase_rehearsal(rehearsal_out, run)
+    total = {name: planted[name] + rehearsed[name] for name in KERNELS}
     line("phase 15 launches", planted=json.dumps(planted).replace(" ", ""),
-         rehearsal=json.dumps(rehearsal).replace(" ", ""),
+         rehearsal=json.dumps(rehearsed).replace(" ", ""),
          seconds=f"{time.perf_counter() - t0:.1f}")
-    return total
+    return total, phase_yolo_leg(yolo_out, yolo)
 
 
 def main() -> int:
@@ -3545,7 +3679,7 @@ def main() -> int:
         dp_launches, space_runs = phase_data_parallel(dev, bank, tmp,
                                                       dispatch_ms)
         space_launches = phase_space(dev, *space_runs)
-        accuracy_launches = phase_accuracy(dev, tmp)
+        accuracy_launches, yolo_leg_launches = phase_tools(dev, tmp)
 
     kernels = [{
         "name": name, "route": "cuda",
@@ -3561,6 +3695,7 @@ def main() -> int:
         "dp_launches": dp_launches[name],
         "space_launches": space_launches[name],
         "accuracy_launches": accuracy_launches[name],
+        "yolo_leg_launches": yolo_leg_launches[name],
         "max_abs_err": max_err[name], **times[name], "library_ms": None,
     } for name, (*_, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,6 +25,8 @@ from typing import Optional
 
 import numpy as np
 
+from reconfigisp_tpu_torch.utils import png
+
 PACK_FILE = "pairs.pack"
 META_FILE = "meta_info.pkl"
 _ALIGN = 64
@@ -103,7 +105,7 @@ class PackedReader:
 
 class LmdbReader:
     """Reference-compatible lmdb backend (keys -> raw array bytes with a
-    shape/dtype sidecar in meta_info.pkl, or cv2-decodable buffers).  Gated
+    shape/dtype sidecar in meta_info.pkl, or PNG buffers).  Gated
     on the lmdb module being importable."""
 
     def __init__(self, root: str, meta: Optional[dict] = None):
@@ -124,14 +126,12 @@ class LmdbReader:
         if rec is not None:
             _, shape, dtype = rec
             return np.frombuffer(buf, dtype=np.dtype(dtype)).reshape(shape)
-        import cv2
-        img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_UNCHANGED)
-        return img
+        return png.decode(bytes(buf))
 
 
 class FolderReader:
     """Plain file-per-record backend: key is a relative path under root
-    (.npy, or anything cv2 can read)."""
+    (.npy, or PNG)."""
 
     def __init__(self, root: str, meta: Optional[dict] = None):
         self.root = root
@@ -141,11 +141,7 @@ class FolderReader:
         path = os.path.join(self.root, key)
         if path.endswith(".npy"):
             return np.load(path)
-        import cv2
-        img = cv2.imread(path, cv2.IMREAD_UNCHANGED)
-        if img is None:
-            raise FileNotFoundError(path)
-        return img
+        return png.read(path)
 
 
 def open_backend(root: str, data_type: Optional[str] = None):

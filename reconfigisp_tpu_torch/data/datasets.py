@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from reconfigisp_tpu_torch.data.backends import META_FILE, open_backend
+from reconfigisp_tpu_torch.utils import png
 
 
 def _crop_rng(seed: int, idx: int, access: int, is_train: bool):
@@ -154,7 +155,7 @@ def _even_crop(rng, h: int, w: int, s: int):
 
 class RawPairFolderDataset:
     """Paired folder backend: <root>/noisy/<name>.npy and <root>/gt/<name>.npy
-    (or .png via cv2).  npy raws may be uint16 (divided by `white_level`) or
+    (or .png, read by utils/png).  npy raws may be uint16 (divided by `white_level`) or
     float32 in [0,1]; pngs are divided by 255.
 
     data_size crops RGGB-aligned random patches (reference
@@ -188,9 +189,7 @@ class RawPairFolderDataset:
                     if arr.dtype == np.uint16:
                         arr = arr.astype(np.float32) / self.white_level
                     return arr.astype(np.float32)
-                import cv2
-                img = cv2.imread(p, cv2.IMREAD_UNCHANGED)
-                return img.astype(np.float32) / 255.0
+                return png.read(p).astype(np.float32) / 255.0
         raise FileNotFoundError(f"{name} under {self.root}/{sub}")
 
     def __getitem__(self, idx: int) -> dict:
@@ -430,11 +429,8 @@ class OnePlusDetectionDataset:
 
     def _load_resized(self, idx: int):
         """-> (mosaic01 (D, D, 1), ratio_h, ratio_w, top_pad)."""
-        import cv2
         from reconfigisp_tpu_torch.utils.imaging import bayer_aware_resize
-        img = cv2.imread(self.img_files[idx], cv2.IMREAD_UNCHANGED)
-        if img is None:
-            raise FileNotFoundError(self.img_files[idx])
+        img = png.read(self.img_files[idx])
         oh, ow = img.shape[:2]
         mosaic01 = img.astype(np.float32) / self.white_level
         resized, (th, tw) = bayer_aware_resize(

@@ -394,8 +394,8 @@ def main():  # pragma: no cover - thin CLI
     np.save(args.out_npy, mosaic)
     print(f"{args.dng}: {mosaic.shape} {meta}")
     if args.gt:
-        import cv2
-        cv2.imwrite(args.gt, postprocess(mosaic, meta))
+        from reconfigisp_tpu_torch.utils import png
+        png.write(args.gt, postprocess(mosaic, meta))
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 
 from reconfigisp_tpu_torch.native import rawproc
+from reconfigisp_tpu_torch.utils import png
 
 
 def grbg_to_rggb(mosaic: np.ndarray) -> np.ndarray:
@@ -94,7 +95,7 @@ def process_raw_pairs(raw_paths, gt_paths, out_root: str, *,
             gt_mosaic, gt_meta = dng.read_dng(gt_p)
             gt = dng.postprocess(gt_mosaic, gt_meta)
         else:
-            gt = np.load(gt_p) if gt_p.endswith(".npy") else _imread(gt_p)
+            gt = np.load(gt_p) if gt_p.endswith(".npy") else png.read(gt_p)
         if gt.dtype == np.uint8:
             gt = gt.astype(np.float32) / 255.0
         name = os.path.splitext(os.path.basename(raw_p))[0]
@@ -113,11 +114,6 @@ def process_raw_pairs(raw_paths, gt_paths, out_root: str, *,
     if writer is not None:
         writer.close()
     return count
-
-
-def _imread(path):
-    import cv2
-    return cv2.imread(path, cv2.IMREAD_UNCHANGED)
 
 
 def _dump(root, name, mosaic, gt):

@@ -30,27 +30,38 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
 _loaded: list = []
 
 
+def _library_path(source: Path, build_dir: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return build_dir / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"rawproc-{digest.hexdigest()[:16]}.so"
+    return _library_path(SOURCE, BUILD_DIR)
+
+
+def compile_library(source: Path, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile a C++ source of this directory with g++ into
+    `build_dir/<stem>-<hash>.so` unless it is built; raises on a failed
+    build."""
+    lib = _library_path(source, build_dir)
+    if lib.exists():
+        return lib
+    build_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    cmd = ["g++", *CXX_FLAGS, "-o", tmp, str(source), "-lpthread"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{source.stem} build failed ({' '.join(cmd)}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def build() -> Path:
     """Compile rawproc.cpp unless it is built; raises on a failed build."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = ["g++", *CXX_FLAGS, "-o", tmp, str(SOURCE), "-lpthread"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"rawproc build failed ({' '.join(cmd)}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    return compile_library(SOURCE, BUILD_DIR)
 
 
 def _lib() -> ctypes.CDLL:

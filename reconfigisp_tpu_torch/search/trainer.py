@@ -634,6 +634,7 @@ def _make_val_probe(opt, dataset, trainer, is_yolo: bool,
     target; and the criterion on the probe samples where the trainer has a
     loss-only eval.  The samples are drawn once, here (see
     _probe_access_slack)."""
+    from reconfigisp_tpu_torch.utils import png
     from reconfigisp_tpu_torch.utils.imaging import tensor2bgr
     from reconfigisp_tpu_torch.utils.metrics import psnr as psnr_fn
 
@@ -682,13 +683,8 @@ def _make_val_probe(opt, dataset, trainer, is_yolo: bool,
                 panels = [inp, y] + ([gt] if gt is not None else [])
                 strip = np.concatenate([tensor2bgr(p) for p in panels],
                                        axis=1)
-                try:
-                    import cv2
-                    cv2.imwrite(os.path.join(
-                        val_dir, f"{step_idx:08d}_{si}.png"), strip)
-                except ImportError:
-                    np.save(os.path.join(
-                        val_dir, f"{step_idx:08d}_{si}.npy"), strip)
+                png.write(os.path.join(
+                    val_dir, f"{step_idx:08d}_{si}.png"), strip)
         if psnrs:
             logs["val_psnr"] = float(np.mean(psnrs))
         return logs

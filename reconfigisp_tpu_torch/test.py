@@ -14,8 +14,7 @@ detections, (D, 7) [x1, y1, x2, y2, conf, cls_conf, cls], as
 <stem>_dets.npy.
 
 Images go under path.results_root: the output and the input|intermediates|GT
-strip as PNGs through cv2, as in the JAX package; where cv2 does not import,
-the output frame as float32 .npy and the strip as uint8 .npy instead.  It
+strip as PNGs (utils/png, no cv2), the files the JAX package writes.  It
 runs on the GPU unless `--device cpu` is given, and exits with an error when
 CUDA is absent and the CPU was not asked for.  --device replaces the JAX
 CLI's --platform.
@@ -34,20 +33,13 @@ import numpy as np
 
 
 def _write(out_dir: str, stem: str, frame: np.ndarray, strip) -> None:
-    """The output frame (float, [0, 1]) and the strip, if any."""
+    """The output frame (float, [0, 1]) and the strip, if any, as PNGs."""
+    from reconfigisp_tpu_torch.utils import png
     from reconfigisp_tpu_torch.utils.imaging import tensor2bgr
-    try:
-        import cv2
-    except ImportError:
-        np.save(os.path.join(out_dir, f"{stem}.npy"), frame)
-        if strip is not None:
-            np.save(os.path.join(out_dir, f"{stem}_strip.npy"),
-                    tensor2bgr(strip))
-        return
     if strip is not None:
-        cv2.imwrite(os.path.join(out_dir, f"{stem}_strip.png"),
-                    tensor2bgr(strip))
-    cv2.imwrite(os.path.join(out_dir, f"{stem}.png"), tensor2bgr(frame))
+        png.write(os.path.join(out_dir, f"{stem}_strip.png"),
+                  tensor2bgr(strip))
+    png.write(os.path.join(out_dir, f"{stem}.png"), tensor2bgr(frame))
 
 
 def main(argv=None) -> int:

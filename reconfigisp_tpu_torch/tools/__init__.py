@@ -1,8 +1,9 @@
 """Tools of the method's accuracy runs and of the real-scale rehearsal.
 
 Counterparts of the repo's tools/planted_demo.py, tools/ft_divergence.py and
-the SID and S7 legs of tools/rehearse_real_scale.py, each run as
-`python -m reconfigisp_tpu_torch.tools.<name>`.  They run on the GPU unless
+tools/rehearse_real_scale.py (its SID, S7 and OnePlus/YOLO legs), and
+proxy_imitation.py (each proxy's held-out error against its op), each run
+as `python -m reconfigisp_tpu_torch.tools.<name>`.  They run on the GPU unless
 `--device cpu` is given, and write only under their own output directory.
 """
 

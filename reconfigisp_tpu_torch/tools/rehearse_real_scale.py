@@ -1,39 +1,48 @@
-"""Real-scale rehearsal: the shipped SID and S7 configs end to end at the
-reference's data scale, on fabricated frames.
+"""Real-scale rehearsal: the shipped SID, S7 and OnePlus configs end to end
+at the reference's data scale, on fabricated frames.
 
-Counterpart of the SID and S7 legs of the repo's
-tools/rehearse_real_scale.py, on the GPU unless `--device cpu` is given.
-Each config runs as written, except its dataroot (the fixtures), `dist`
-(one card) and the module bank (experiments/proxies/default.ckpt of the
-checkout, which the port reads and never writes):
+Counterpart of the repo's tools/rehearse_real_scale.py, on the GPU unless
+`--device cpu` is given.  Each config runs as written, except its dataroot
+(the fixtures), `dist` (one card), the module bank
+(experiments/proxies/default.ckpt of the checkout, which the port reads and
+never writes) and, for detection, the darknet file the leg writes:
 
-  SID leg — 1424x2128 14-bit RGGB frames (reference
-            generate_rggb2bgr_imgs_SID_Sony.py:50), written as DNGs by
-            data/dng.py and ingested by data/preprocessing.py, then
-            configs/SID_search.yaml (3-step / 15-op native search, 48px
-            crops) -> configs/SID_isp.yaml (192px fixed training) ->
-            configs/SID_test.yaml (512/480 tiled full-frame test with
-            exposure-pair selection).
-  S7 leg  — 3024x4032 10-bit GRBG frames (reference
-            generate_rggb2bgr_imgs_S7ISP_percentage.py:37-62), cropped to
-            RGGB by preprocessing, then configs/S7ISP_search_ft.yaml
-            (darts_ft search with online proxy tuning) ->
-            configs/S7ISP_isp.yaml (384px fixed training) ->
-            configs/S7ISP_test.yaml (512/480 tiled test).
+  SID leg     — 1424x2128 14-bit RGGB frames (reference
+                generate_rggb2bgr_imgs_SID_Sony.py:50), written as DNGs by
+                data/dng.py and ingested by data/preprocessing.py, then
+                configs/SID_search.yaml (3-step / 15-op native search, 48px
+                crops) -> configs/SID_isp.yaml (192px fixed training) ->
+                configs/SID_test.yaml (512/480 tiled full-frame test with
+                exposure-pair selection).
+  S7 leg      — 3024x4032 10-bit GRBG frames (reference
+                generate_rggb2bgr_imgs_S7ISP_percentage.py:37-62), cropped
+                to RGGB by preprocessing, then configs/S7ISP_search_ft.yaml
+                (darts_ft search with online proxy tuning) ->
+                configs/S7ISP_isp.yaml (384px fixed training) ->
+                configs/S7ISP_test.yaml (512/480 tiled test).
+  OnePlus leg — 3000x4000 10-bit mosaics as 16-bit PNGs with labelme JSONs
+                (reference oneplus_rggb2obj layout) and an 80-class YOLOv3
+                darknet file, its criterion pretrained on clean letterboxed
+                views of the scenes, then configs/yolo_search.yaml (256px
+                darts_yolo search) -> configs/yolo_isp.yaml (512px fixed
+                training) -> configs/yolo_test.yaml (1024px detection test).
 
-The search phases are smoke-sized (--iters); the fixed-pipeline phases run
-a learning budget (--learn-iters), so the results carry the loss's fall and
-the test PSNR.  Each phase records compile_s apart from steady_s_per_iter,
-and the reference's iteration budget projected at the steady rate.  Scenes
-are upsampled with torch's bicubic interpolation and the GT is written as
-.npy, so no cv2 is needed.  Writes <out>/results.json with the device's name
-and power limit; the fixtures go under --root, the runs' experiment and
-result trees under <out>.  The OnePlus/YOLO leg is not ported here.
+The search phases are smoke-sized (--iters; the detection search a quarter
+of it, at least 4); the fixed-pipeline phases run a learning budget
+(--learn-iters), so the results carry the loss's fall and the test PSNR or
+mAP.  Each phase records compile_s apart from steady_s_per_iter, and the
+reference's iteration budget projected at the steady rate.  Scenes are
+upsampled with torch's bicubic interpolation, SID's GT is written as .npy,
+the OnePlus PNGs by utils/png and the letterbox by utils/imaging's area
+resize, so no cv2 is needed.  Writes <out>/results.json with the device's
+name and power limit; the fixtures go under --root, the runs' experiment
+and result trees under <out>.
 
 Usage:  python -m reconfigisp_tpu_torch.tools.rehearse_real_scale
-        [--root DIR] [--iters N] [--learn-iters N] [--legs sid,s7]
+        [--root DIR] [--iters N] [--learn-iters N] [--legs sid,s7,yolo]
         [--phases search,isp,test] [--out DIR] [--device cpu]
-        [--sid-size HxW] [--s7-size HxW]
+        [--sid-size HxW] [--s7-size HxW] [--oneplus-size HxW]
+        [--criterion-iters N] [--yolo-search-iters N]
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ import contextlib
 import glob
 import io
 import json
+import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -59,6 +70,11 @@ OUT_DIR = os.path.join("experiments", "rehearsal_torch")
 BANK = REPO / "experiments" / "proxies" / "default.ckpt"
 SID_SIZE = (1424, 2128)
 S7_SIZE = (3024, 4032)
+ONEPLUS_SIZE = (3000, 4000)
+# the detection configs' frozen evaluator and the OnePlus dataset's
+# letterbox (its desired_size, 1024 by default)
+DETECTOR = "yolov3"
+DESIRED = 1024
 
 # reference iteration budgets (options/train/*.yml): the projection says
 # how long the reference's whole budget takes at the measured steady rate
@@ -153,13 +169,16 @@ def _options(name: str, out: str, dataroot: str) -> dict:
 
 
 def _test(name: str, out: str, root: str, dataroot: str, ckpt: str,
-          device) -> dict:
+          device, edit=None) -> dict:
     """A test config as written, its test set at `dataroot`, the network
-    `ckpt`, results under `out` -> the test CLI's summary."""
+    `ckpt`, results under `out`, then `edit(options)` if given -> the test
+    CLI's summary."""
     with open(CONFIGS / f"{name}.yaml") as f:
         topt = yaml.safe_load(f)
     topt["datasets"]["test"]["dataroot"] = dataroot
     topt["path"]["pretrain_model_G"] = ckpt
+    if edit is not None:
+        edit(topt)
     topt["path"]["root"] = os.path.abspath(out)
     tpath = os.path.join(root, f"{name}_rehearsal.yaml")
     with open(tpath, "w") as f:
@@ -331,6 +350,318 @@ def run_s7_leg(root, iters, learn_iters, phases=("search", "isp", "test"),
     return res
 
 
+# ------------------------------------------------------------ OnePlus leg
+
+def _letterbox(scene, desired):
+    """The OnePlus dataset's geometry on a clean BGR scene
+    (data/datasets.py, OnePlusDetectionDataset._load_resized): an
+    aspect-preserving area resize into a `desired`-square canvas, the
+    content band at an even `top`.  -> (canvas float32, (rh, rw, top)): a
+    box maps as x * rw, y * rh + top, as the dataset's labels do."""
+    from reconfigisp_tpu_torch.utils.imaging import area_resize
+    h, w = scene.shape[:2]
+    scale = desired / max(h, w)
+    th = int(round(h * scale / 2)) * 2
+    tw = int(round(w * scale / 2)) * 2
+    top = (desired - th) // 2 // 2 * 2
+    canvas = np.zeros((desired, desired, 3), np.float32)
+    canvas[top:top + th, :tw] = area_resize(scene, (th, tw))
+    return np.clip(canvas, 0, 1).astype(np.float32), (th / h, tw / w, top)
+
+
+def _detector_blocks():
+    from reconfigisp_tpu_torch.yolo import cfg as ycfg
+    if DETECTOR == "yolov3":
+        return ycfg.yolov3_blocks(num_classes=80)
+    return ycfg.yolov3_tiny_test_blocks(num_classes=80)
+
+
+def oneplus_frames(n=2, seed=0, size=ONEPLUS_SIZE):
+    """The JAX tool's OnePlus draws: per frame a dimmed smooth scene with
+    four bright "car" boxes of 300-900 px (scaled with a smaller `size`)
+    -> [(scene, labelme shapes, 10-bit mosaic uint16)]."""
+    H, W = size
+    rng = np.random.default_rng(seed)
+    side = min(H / ONEPLUS_SIZE[0], W / ONEPLUS_SIZE[1])
+    lo, hi = int(300 * side), int(900 * side)
+    frames = []
+    for _ in range(n):
+        scene = _smooth_scene(rng, H, W) * 0.35
+        shapes = []
+        for _ in range(4):
+            hh, ww = rng.integers(lo, hi), rng.integers(lo, hi)
+            y0 = int(rng.integers(0, H - hh))
+            x0 = int(rng.integers(0, W - ww))
+            scene[y0:y0 + hh, x0:x0 + ww] = rng.uniform(0.7, 1.0, 3)
+            shapes.append({"label": "car",
+                           "points": [[int(x0), int(y0)],
+                                      [int(x0 + ww), int(y0 + hh)]]})
+        mosaic = (np.clip(_mosaic(scene), 0, 1) * 1023).astype(np.uint16)
+        frames.append((scene, shapes, mosaic))
+    return frames
+
+
+def build_oneplus_fixtures(root, n=2, seed=0, pretrain_iters=0, *,
+                           size=ONEPLUS_SIZE, device=None):
+    """Fabricated OnePlus: 3000x4000 10-bit mosaics written as 16-bit PNGs
+    (utils/png), labelme JSONs of four "car" boxes a frame, and an 80-class
+    darknet file (yolo/net.save_darknet_weights) of the port's seeded init;
+    with pretrain_iters > 0 the criterion is pretrained first
+    (pretrain_criterion) and read back from the file for a self-check.
+    The frames are oneplus_frames'.  -> (data_root, weights path, the
+    pretraining's stats or None).
+
+    The build is cached on (n, seed, pretrain_iters), so a rerun of some
+    phases freezes the criterion the recorded phases saw."""
+    from reconfigisp_tpu_torch.utils import png
+    from reconfigisp_tpu_torch.yolo.loss import decode_head
+    from reconfigisp_tpu_torch.yolo.net import (
+        init_yolo, load_darknet_weights, save_darknet_weights)
+
+    data_root = os.path.join(root, "oneplus")
+    os.makedirs(data_root, exist_ok=True)
+    wpath = os.path.join(root, "yolov3.weights")
+    cpath = os.path.join(root, "yolov3.weights.build.json")
+    key = {"n": n, "seed": seed, "pretrain_iters": pretrain_iters}
+    if os.path.exists(wpath) and os.path.exists(cpath):
+        with open(cpath) as f:
+            cached = json.load(f)
+        if cached.get("key") == key:
+            log(f"OnePlus fixtures: cache hit ({cpath}); reusing the "
+                f"frozen criterion the previous phases recorded")
+            return data_root, wpath, cached.get("stats")
+    scenes, boxes = [], []
+    for i, (scene, shapes, mosaic) in enumerate(
+            oneplus_frames(n, seed, size)):
+        png.write(os.path.join(data_root, f"{i:03d}.png"), mosaic)
+        with open(os.path.join(data_root, f"{i:03d}.json"), "w") as f:
+            json.dump({"shapes": shapes}, f)
+        scenes.append(scene)
+        boxes.append([(2, s["points"][0][0], s["points"][0][1],
+                       s["points"][1][0], s["points"][1][1])
+                      for s in shapes])  # "car" -> COCO class 2
+
+    dev = resolve_device(device)
+    blocks = _detector_blocks()
+    net = init_yolo(blocks, torch.Generator().manual_seed(0), device=dev)
+    stats = None
+    if pretrain_iters:
+        stats = pretrain_criterion(net, scenes, boxes, pretrain_iters)
+    save_darknet_weights(net, wpath)
+    log(f"OnePlus fixtures: {n} frames at {size[0]}x{size[1]}, 80-class "
+        f"darknet "
+        f"weights {os.path.getsize(wpath) / 1e6:.0f} MB"
+        + (f", criterion pretrained {pretrain_iters} iters" if stats
+           else " (random-init criterion)"))
+    if stats is not None:
+        # through the saved file, on the test's letterboxed view: catches
+        # both a save/load drift and a train/test geometry skew
+        reloaded = load_darknet_weights(blocks, wpath, device=dev)
+        canvas, _ = _letterbox(scenes[0], DESIRED)
+        with torch.no_grad():
+            heads = reloaded(torch.from_numpy(
+                np.ascontiguousarray(canvas[..., ::-1]))[None].to(dev))
+            top_conf = max(float(decode_head(h, a, DESIRED)[1].max())
+                           for h, a, _ in heads)
+        stats["selfcheck_top_conf"] = round(top_conf, 4)
+        log(f"criterion self-check (saved weights, clean test view): "
+            f"top conf {top_conf:.3f}"
+            + ("" if top_conf > 0.5 else "  <-- WEAK: the test mAP will "
+               "suffer"))
+    with open(cpath, "w") as f:
+        json.dump({"key": key, "stats": stats}, f)
+    return data_root, wpath, stats
+
+
+def _crop_labels(boxes_lb, r0, c0, s):
+    """Letterbox-coordinate boxes -> (16, 6) labels of the crop (r0, c0, s)
+    under the dataset's visibility >= 0.5 rule."""
+    lab = np.zeros((16, 6), np.float32)
+    k = 0
+    for cls, x0, y0, x1, y1 in boxes_lb:
+        xa, xb = x0 - c0, x1 - c0
+        ya, yb = y0 - r0, y1 - r0
+        xav, xbv = np.clip([xa, xb], 0, s - 1)
+        yav, ybv = np.clip([ya, yb], 0, s - 1)
+        area = (xb - xa) * (yb - ya)
+        vis = (xbv - xav) * (ybv - yav)
+        if area <= 0 or vis / area < 0.5 or k >= 16:
+            continue
+        lab[k] = [1.0, cls, (xav + xbv) / 2 / s, (yav + ybv) / 2 / s,
+                  (xbv - xav) / s, (ybv - yav) / s]
+        k += 1
+    return lab
+
+
+def criterion_views(scenes, boxes, size, device=None):
+    """The views the frozen criterion is pretrained on, in the geometry the
+    OnePlus dataset shows it: per scene the clean letterboxed frame and its
+    mosaic + Malvar re-render (the test's view), per box a size // 2 crop of
+    the letterbox (a training crop), the first box's crop also re-rendered.
+    -> {view size: (RGB images (N, S, S, 3), labels (N, 16, 6))} as
+    tensors on `device`."""
+    from reconfigisp_tpu_torch.ops import demosaic as dm
+
+    def malvar(bgr):
+        x = torch.from_numpy(_mosaic(bgr))[None, ..., None].to(device)
+        return dm.demosaic_malvar(x)[0].clamp(0, 1).cpu().numpy()
+
+    groups = {size: ([], []), size // 2: ([], [])}
+    for scene, shapes in zip(scenes, boxes):
+        canvas, (rh, rw, top) = _letterbox(scene, size)
+        boxes_lb = [(cls, x0 * rw, y0 * rh + top, x1 * rw, y1 * rh + top)
+                    for cls, x0, y0, x1, y1 in shapes]
+        lab = _crop_labels(boxes_lb, 0, 0, size)
+        for view in (canvas, malvar(canvas)):
+            groups[size][0].append(view[..., ::-1])
+            groups[size][1].append(lab)
+        s2 = size // 2
+        for bi, (cls, x0, y0, x1, y1) in enumerate(boxes_lb):
+            r0 = int(np.clip((y0 + y1) / 2 - s2 / 2, 0, size - s2)) // 2 * 2
+            c0 = int(np.clip((x0 + x1) / 2 - s2 / 2, 0, size - s2)) // 2 * 2
+            lab2 = _crop_labels(boxes_lb, r0, c0, s2)
+            if not lab2[:, 0].any():
+                continue
+            crop = canvas[r0:r0 + s2, c0:c0 + s2]
+            groups[s2][0].append(crop[..., ::-1])
+            groups[s2][1].append(lab2)
+            if bi == 0:
+                groups[s2][0].append(malvar(crop)[..., ::-1])
+                groups[s2][1].append(lab2)
+    return {s: (torch.from_numpy(np.stack(im).astype(np.float32)).to(device),
+                torch.from_numpy(np.stack(lb)).to(device))
+            for s, (im, lb) in groups.items() if im}
+
+
+def pretrain_criterion(net, scenes, boxes, iters, size=None, lr=5e-4,
+                       warmup=50, clip_norm=10.0, log_every=50):
+    """A brief supervised pretraining of the frozen detection criterion,
+    where it lies, by the JAX tool's recipe -> its stats.
+
+    The reference freezes released darknet weights; none ship here, and a
+    randomly initialised YOLOv3's loss has no structure the ISP's few
+    parameters can reduce.  So the same 80-class graph is trained on
+    criterion_views, two views a step, alternating between the two view
+    sizes, each augmented by a channel gain U[0.85, 1.15], a gamma
+    U[0.8, 1.25] and noise of sigma 0.02 (without them the criterion
+    memorises its dozen views and fires on nothing else), drawn from a
+    seeded torch.Generator on the net's device; the gradient's global norm
+    clipped at `clip_norm`; the rate warmed up over `warmup` steps, then
+    decayed by a cosine to 0.1 of `lr`; and the JAX package's Adam
+    (utils/optim.adam_update: beta2 0.99, eps outside the root)."""
+    from reconfigisp_tpu_torch.yolo.loss import yolo_loss
+    size = size or DESIRED
+    dev = next(net.parameters()).device
+    data = criterion_views(scenes, boxes, size, dev)
+    n_views = sum(v[0].shape[0] for v in data.values())
+    log("criterion pretrain: " + ", ".join(
+        f"{v[0].shape[0]} views @ {s}px" for s, v in sorted(data.items()))
+        + f" ({n_views} total, letterbox geometry)")
+
+    params = list(net.requires_grad_(True).parameters())
+    moments = [torch.zeros_like(p) for p in params]
+    squares = [torch.zeros_like(p) for p in params]
+    beta1, beta2, eps = 0.9, 0.99, 1e-8
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sizes = sorted(data)
+    t0 = time.time()
+    first = compile_s = t1 = loss = None
+    for i in range(iters):
+        x, y = data[sizes[i % len(sizes)]]
+        nb = min(2, x.shape[0])
+        idx = torch.from_numpy(rng.choice(x.shape[0], size=nb,
+                                          replace=False)).to(dev)
+        xb, yb = x[idx], y[idx]
+        gain = 0.85 + 0.3 * torch.rand((nb, 1, 1, 3), generator=gen,
+                                       device=dev)
+        gamma = 0.8 + 0.45 * torch.rand((nb, 1, 1, 1), generator=gen,
+                                        device=dev)
+        xa = torch.clamp(xb * gain, 0.0, 1.0) ** gamma + 0.02 * torch.randn(
+            xb.shape, generator=gen, device=dev)
+        loss = yolo_loss(net(xa), yb, xb.shape[1])
+        grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            factor = torch.clamp(clip_norm / (gnorm + 1e-12), max=1.0)
+            frac = min(max((i + 1) / max(1, warmup), 0.0), 1.0)
+            decay = 0.5 * (1 + math.cos(math.pi * min(max(
+                (i - warmup) / max(1, iters - warmup), 0.0), 1.0)))
+            rate = lr * frac * (0.1 + 0.9 * decay)
+            bc1, bc2 = 1 - beta1 ** (i + 1), 1 - beta2 ** (i + 1)
+            for p, g, m, v in zip(params, grads, moments, squares):
+                g = g * factor
+                m.mul_(beta1).add_(g, alpha=1 - beta1)
+                v.mul_(beta2).addcmul_(g, g, value=1 - beta2)
+                p.sub_(rate * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        if i == 0:
+            first = float(loss.detach())
+            compile_s = time.time() - t0
+            t1 = time.time()
+        elif log_every and (i + 1) % log_every == 0:
+            log(f"  criterion pretrain {i + 1}/{iters} "
+                f"loss {float(loss.detach()):.1f}")
+    final = float(loss.detach())
+    net.requires_grad_(False)
+    stats = {"iters": iters, "loss_first": round(first, 2),
+             "loss": round(final, 2), "compile_s": round(compile_s, 2),
+             "steady_s_per_iter": round(
+                 (time.time() - t1) / max(1, iters - 1), 4)}
+    log(f"criterion pretrain: loss {first:.1f} -> {final:.1f} "
+        f"({stats['steady_s_per_iter']}s/iter @ {size}px)")
+    return stats
+
+
+def _detection(opt: dict, dataroot: str, weights: str, split: str) -> dict:
+    """A detection config's `split` set at the fixtures, letterboxed to
+    DESIRED, and its frozen evaluator at the fixtures' darknet file."""
+    opt["datasets"][split]["dataroot"] = dataroot
+    opt["datasets"][split]["desired_size"] = DESIRED
+    opt["yolo"]["weights"] = weights
+    opt["yolo"]["cfg"] = DETECTOR
+    return opt
+
+
+def run_yolo_leg(root, iters, learn_iters, phases=("search", "isp", "test"),
+                 *, out=OUT_DIR, device=None, size=ONEPLUS_SIZE,
+                 criterion_iters=None, search_iters=None):
+    """The criterion's pretraining (max(300, learn_iters) steps unless
+    criterion_iters), yolo_search.yaml (max(4, iters // 4) steps unless
+    search_iters), yolo_isp.yaml (learn_iters) and yolo_test.yaml."""
+    data_root, wpath, pstats = build_oneplus_fixtures(
+        root, pretrain_iters=criterion_iters or max(300, learn_iters),
+        size=size, device=device)
+    res = {}
+    if pstats:
+        res["criterion_pretrain"] = pstats
+
+    if "search" in phases:
+        s_iters = search_iters or max(4, iters // 4)
+        opt = _detection(_options("yolo_search", out, data_root), data_root,
+                         wpath, "train")
+        opt["dist"] = False
+        s = run_training(opt, max_iters=s_iters, device=device)
+        res["search"] = _phase(s, s_iters, "yolo", "search")
+        log(f"yolo search ok: {res['search']}")
+
+    if "isp" in phases:
+        y_learn = max(4, learn_iters)
+        opt = _detection(_options("yolo_isp", out, data_root), data_root,
+                         wpath, "train")
+        s = run_training(opt, max_iters=y_learn, device=device)
+        res["isp"] = _phase(s, y_learn, "yolo", "isp")
+        log(f"yolo isp ok: {res['isp']}")
+
+    if "test" in phases:
+        ckpt = _latest_ckpt(os.path.join(out, "experiments", "yolo_isp",
+                                         "models", "*_G.ckpt"))
+        res["test"] = _test(
+            "yolo_test", out, root, data_root, ckpt, device,
+            edit=lambda t: _detection(t, data_root, wpath, "test"))
+        log(f"yolo {DESIRED}px test ok: {res['test']}")
+    return res
+
+
 def _run_test_cli(opt_path, device=None) -> dict:
     """The port's test CLI in this process -> the numbers of its summary
     lines (psnr_mean=...)."""
@@ -365,7 +696,7 @@ def main(argv=None):
                     help="smoke budget for the search phases")
     ap.add_argument("--learn-iters", type=int, default=600,
                     help="learning budget for the fixed-pipeline phases")
-    ap.add_argument("--legs", default="sid,s7")
+    ap.add_argument("--legs", default="sid,s7,yolo")
     ap.add_argument("--phases", default="search,isp,test",
                     help="phase subset for any leg (e.g. 'isp,test' to "
                          "redo training and test without the search); "
@@ -377,15 +708,19 @@ def main(argv=None):
                     help="SID frames, HxW (1424x2128)")
     ap.add_argument("--s7-size", type=_size, default=S7_SIZE,
                     help="S7 frames before the GRBG crop, HxW (3024x4032)")
+    ap.add_argument("--oneplus-size", type=_size, default=ONEPLUS_SIZE,
+                    help="OnePlus frames, HxW (3000x4000)")
+    ap.add_argument("--criterion-iters", type=int, default=None,
+                    help="the detection criterion's pretraining steps "
+                         "(max(300, learn-iters))")
+    ap.add_argument("--yolo-search-iters", type=int, default=None,
+                    help="the detection search's steps (max(4, iters // 4))")
     args = ap.parse_args(argv)
 
     legs = args.legs.split(",")
-    unknown = set(legs) - {"sid", "s7"}
+    unknown = set(legs) - {"sid", "s7", "yolo"}
     if unknown:
-        raise NotImplementedError(
-            f"legs {sorted(unknown)}: only sid and s7 are ported; the "
-            f"OnePlus/YOLO leg (its fixtures, the criterion's pretraining, "
-            f"its search, training and test) is the port's next slice")
+        raise ValueError(f"unknown legs {sorted(unknown)}: sid, s7, yolo")
     dev = resolve_device(args.device)
     out = args.out
     root = args.root or os.path.join(out, "data")
@@ -397,13 +732,21 @@ def main(argv=None):
             results = json.load(f)
     results["device"] = device_record(dev)
     phases = tuple(args.phases.split(","))
-    for leg, run, size in (("sid", run_sid_leg, args.sid_size),
-                           ("s7", run_s7_leg, args.s7_size)):
+    runs = {"sid": lambda: run_sid_leg(root, args.iters, args.learn_iters,
+                                       phases, out=out, device=dev,
+                                       size=args.sid_size),
+            "s7": lambda: run_s7_leg(root, args.iters, args.learn_iters,
+                                     phases, out=out, device=dev,
+                                     size=args.s7_size),
+            "yolo": lambda: run_yolo_leg(
+                root, args.iters, args.learn_iters, phases, out=out,
+                device=dev, size=args.oneplus_size,
+                criterion_iters=args.criterion_iters,
+                search_iters=args.yolo_search_iters)}
+    for leg, run in runs.items():
         if leg not in legs:
             continue
-        res = run(root, args.iters, args.learn_iters, phases, out=out,
-                  device=dev, size=size)
-        results[leg] = {**results.get(leg, {}), **res}
+        results[leg] = {**results.get(leg, {}), **run()}
         with open(rpath, "w") as f:
             json.dump(results, f, indent=1)
     log("rehearsal complete:", json.dumps(results, indent=1))

@@ -119,17 +119,22 @@ def test_test_cli_psnr_matches_jax(test_options, mode):
 
 
 def test_test_cli_writes_arrays_without_cv2(monkeypatch, tmp_path):
-    """Without cv2 the output frame is kept as float32 .npy and the strip
-    as uint8 .npy."""
+    """Without cv2 the output frame and the strip are still written as the
+    8-bit PNGs the JAX package writes (utils/png), which cv2 reads back."""
+    import cv2
     from reconfigisp_tpu_torch import test as test_cli
+    from reconfigisp_tpu_torch.utils.imaging import tensor2bgr
     monkeypatch.setitem(sys.modules, "cv2", None)
     frame = np.random.default_rng(0).uniform(0, 1, (6, 8, 3)).astype(
         np.float32)
-    test_cli._write(str(tmp_path), "0000", frame, np.concatenate(
-        [frame, frame], axis=1))
-    np.testing.assert_array_equal(np.load(tmp_path / "0000.npy"), frame)
-    strip = np.load(tmp_path / "0000_strip.npy")
-    assert strip.dtype == np.uint8 and strip.shape == (6, 16, 3)
+    strip = np.concatenate([frame, frame], axis=1)
+    test_cli._write(str(tmp_path), "0000", frame, strip)
+    monkeypatch.setitem(sys.modules, "cv2", cv2)
+    for name, want in (("0000.png", frame), ("0000_strip.png", strip)):
+        got = cv2.imread(str(tmp_path / name), cv2.IMREAD_UNCHANGED)
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, tensor2bgr(want))
+    assert not list(tmp_path.glob("*.npy"))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="CUDA is present")
