@@ -135,16 +135,19 @@ Phases, one line each:
      (2, 2) mesh;
  15. the method's accuracy tools and the real-scale rehearsal
      (reconfigisp_tpu_torch/tools/), each a subprocess through run_cli
-     with its launches counted: (a) tools/planted_demo.py, seed 0, at
-     PLANTED_SMOKE's budgets (module pretraining, the native, proxy and
-     darts_ft searches of configs/planted_search*.yaml with one tuning
-     round, step-2 training of the searched architecture and its
-     ablations through configs/planted_isp.yaml, held-out PSNR), then
-     tools/ft_divergence.py: every decoded architecture builds, every loss
-     is finite, each step-2 training lowers the loss on its first batch
-     (or leaves a pipeline whose parameters get no gradient as it was),
-     and the searched architecture trained here scores the same held-out
-     PSNR on the card and on the CPU within EVAL_PSNR_TOL_DB; (b)
+     with its launches counted: (a) tools/planted_demo.py, seeds 0 and 1
+     (PLANTED_SEEDS), at PLANTED_SMOKE's budgets (module pretraining, then
+     for each seed the native, proxy and darts_ft searches of
+     configs/planted_search*.yaml with one tuning round, step-2 training
+     of the searched architecture and its ablations through
+     configs/planted_isp.yaml, held-out PSNR), then
+     tools/ft_divergence.py: for each seed every decoded architecture
+     builds, every loss and the margin are finite, each step-2 training
+     lowers the loss on its first batch (or leaves a pipeline whose
+     parameters get no gradient as it was); the cross-seed aggregates
+     count both seeds; and seed 0's searched architecture trained here
+     scores the same held-out PSNR on the card and on the CPU within
+     EVAL_PSNR_TOL_DB; (b)
      tools/rehearse_real_scale.py's SID leg (14-bit DNGs of 1424x2128
      ingested, configs/SID_search.yaml, SID_isp.yaml, SID_test.yaml's
      tiled test) and S7 leg (10-bit GRBG frames of 3024x4032 cropped to
@@ -3395,14 +3398,16 @@ def phase_space(dev, ranks: list, ref: dict) -> dict:
 # Phase 15: the method's accuracy tools and the real-scale rehearsal
 # (reconfigisp_tpu_torch/tools/), in subprocesses through run_cli, 15a's
 # beside 15b's.
-# Cuts (steps, never geometry): the planted demo's pretraining 20 of 3,000
-# steps, 6 of 1,500 search steps a leg (darts_ft's tuning interval 50 cut to
-# 6, so one round fires), 20 of 800 step-2 steps (and of ft_divergence's
-# 700), 4 of 16 held-out frames; the rehearsal's search 2 of 600 steps
+# Cuts (steps, never geometry): the planted demo's seeds 2 of 3, its
+# pretraining 20 of 3,000 steps, 6 of 1,500 search steps a leg (darts_ft's
+# tuning interval 50 cut to 6, so one round fires), 20 of 800 step-2 steps
+# (and of ft_divergence's 700), 4 of 16 held-out frames; the rehearsal's
+# search 2 of 600 steps
 # (S7's tuning interval is the tool's own, max(2, min(50, iters // 2))),
 # learning 3 of 1,200, one test frame a leg, every frame at full size.
 PLANTED_SMOKE = {"--pretrain-steps": 20, "--search-iters": 6,
                  "--ft-interval": 6, "--isp-iters": 20, "--eval-frames": 4}
+PLANTED_SEEDS = (0, 1)
 PLANTED_FT_STEPS = 4         # planted_search_ft.yaml's ft_steps
 REHEARSAL_ITERS, REHEARSAL_LEARN = 2, 3
 REHEARSAL_FT_STEPS = 2       # the rehearsal's S7 ft_steps
@@ -3419,11 +3424,13 @@ def _finite(*values) -> bool:
 
 
 def _planted_clis(out: Path) -> tuple:
-    """tools/planted_demo.py at PLANTED_SMOKE's budgets, seed 0, then
-    tools/ft_divergence.py, into `out` -> their run_cli results."""
+    """tools/planted_demo.py at PLANTED_SMOKE's budgets over PLANTED_SEEDS,
+    then tools/ft_divergence.py over every seed, into `out` -> their run_cli
+    results."""
     budget = [a for k, v in PLANTED_SMOKE.items() for a in (k, str(v))]
     demo = run_cli("reconfigisp_tpu_torch.tools.planted_demo", "--seeds",
-                   "0", *budget, "--out", str(out), timeout=900)
+                   ",".join(map(str, PLANTED_SEEDS)), *budget, "--out",
+                   str(out), timeout=900)
     ft = run_cli("reconfigisp_tpu_torch.tools.ft_divergence", "--isp-iters",
                  str(PLANTED_SMOKE["--isp-iters"]), "--eval-frames",
                  str(PLANTED_SMOKE["--eval-frames"]), "--out", str(out))
@@ -3431,31 +3438,77 @@ def _planted_clis(out: Path) -> tuple:
 
 
 def phase_planted(dev, out: Path, demo: dict, ft: dict) -> dict:
-    """15a, on _planted_clis' runs into `out`: every decoded architecture
-    builds, every loss is finite, each step-2 training lowers its loss on
-    its first batch (or moves no parameter, none getting a gradient), and
-    the searched architecture's trained state scores the same held-out PSNR
-    on the card and on the CPU.  -> the kernels' launches of both
-    processes."""
+    """15a, on _planted_clis' runs into `out`: for each seed every decoded
+    architecture builds, every loss and the margin are finite, and each
+    step-2 training lowers its loss on its first batch (or moves no
+    parameter, none getting a gradient); the cross-seed aggregates cover
+    every seed; and seed 0's searched architecture's trained state scores
+    the same held-out PSNR on the card and on the CPU.  -> the kernels'
+    launches of both processes."""
     t0 = time.perf_counter()
     res = json.loads((out / "results.json").read_text())
-    seed = res["seeds"]["0"]
     if res["device"].get("type") != "cuda" or not res["device"]["nvidia_smi"]:
         raise AssertionError(f"15a device record: {res['device']}")
+    for s in PLANTED_SEEDS:
+        _check_planted_seed(dev, s, res["seeds"][str(s)])
+    gap = res["ft_divergence_psnr_gap_db"]
+    keys = {str(s) for s in PLANTED_SEEDS}
+    if not (res["seeds_finished"] == len(PLANTED_SEEDS)
+            and res["seeds_pending"] == 0
+            and set(res["margin_db_per_seed"]) == keys
+            and set(gap["per_seed"]) == keys
+            and _finite(res["margin_db_mean"], res["margin_db_std"],
+                        gap["mean"])):
+        raise AssertionError(f"15a aggregates: {res}")
+
+    arch = res["seeds"]["0"]["search_native"]["architecture"]
+    pipe, _ = planted_demo.train_fixed(
+        arch, PLANTED_SMOKE["--isp-iters"], proxies=str(out / "proxies.ckpt"),
+        device=dev)
+    n = PLANTED_SMOKE["--eval-frames"]
+    card = planted_demo.eval_psnr(pipe, n=n)
+    cpu = planted_demo.eval_psnr(Pipeline(arch, device="cpu").load_state(
+        convert.state_from_jax(convert.state_to_jax(pipe))), n=n)
+    launches = {name: demo["launches"][name] + ft["launches"][name]
+                for name in KERNELS}
+    least = {name: PLANTED_SMOKE["--pretrain-steps"] + len(PLANTED_SEEDS)
+             * (15 * PLANTED_SMOKE["--search-iters"] + PLANTED_FT_STEPS)
+             for name in KERNELS}
+    line("phase 15a planted", arch=arch,
+         margin_db=json.dumps(res["margin_db_per_seed"]).replace(" ", ""),
+         margin_mean_db=res["margin_db_mean"],
+         margin_std_db=res["margin_db_std"],
+         ft_gap_db=json.dumps(gap["per_seed"]).replace(" ", ""),
+         card_psnr_db=f"{card:.6f}",
+         cpu_psnr_db=f"{cpu:.6f}", diff_db=f"{abs(card - cpu):.3e}",
+         tol_db=EVAL_PSNR_TOL_DB, demo_s=f"{demo['seconds']:.1f}",
+         ft_divergence_s=f"{ft['seconds']:.1f}",
+         launches=json.dumps(launches).replace(" ", ""),
+         at_least=json.dumps(least).replace(" ", ""),
+         check_s=f"{time.perf_counter() - t0:.1f}")
+    if not abs(card - cpu) <= EVAL_PSNR_TOL_DB:
+        raise AssertionError(f"15a eval_psnr: card {card}, cpu {cpu}")
+    if any(launches[name] < least[name] for name in KERNELS):
+        raise AssertionError(f"15a launches {launches} < {least}")
+    return launches
+
+
+def _check_planted_seed(dev, s: int, seed: dict) -> None:
+    """15a's checks of one seed's legs, step-2 records and margin."""
     for leg in ("native", "proxy", "ft"):
         rec = seed[f"search_{leg}"]
-        line("phase 15a search", leg=leg, arch=rec["architecture"],
+        line("phase 15a search", seed=s, leg=leg, arch=rec["architecture"],
              iters=rec["iters"], loss=f"{rec['loss']:.6e}",
              val_loss=f"{rec['val_loss']:.6e}", s=rec["seconds"])
         Pipeline(rec["architecture"], device=dev)
         if rec["iters"] != PLANTED_SMOKE["--search-iters"] or not _finite(
                 rec["loss"], rec["val_loss"]):
-            raise AssertionError(f"15a {leg} search: {rec}")
+            raise AssertionError(f"15a seed {s} {leg} search: {rec}")
     trained = {**seed["step2_psnr"],
                **{f"ft_divergence_{k}": v
                   for k, v in seed["leg_arch_psnr"].items()}}
     for what, rec in trained.items():
-        line("phase 15a step 2", what=what, arch=rec["architecture"],
+        line("phase 15a step 2", seed=s, what=what, arch=rec["architecture"],
              steps=PLANTED_SMOKE["--isp-iters"],
              train_loss=f"{rec['train_loss']:.6e}",
              probe_loss=f"{rec['probe_loss_start']:.6e}->"
@@ -3470,37 +3523,9 @@ def phase_planted(dev, out: Path, demo: dict, ft: dict) -> dict:
                  if rec["logits_moved"] > 0 else
                  rec["probe_loss_final"] == rec["probe_loss_start"])
         if not (_finite(rec["train_loss"], rec["psnr"]) and falls):
-            raise AssertionError(f"15a step 2 {what}: {rec}")
-    gap = res["ft_divergence_psnr_gap_db"]
-    if not _finite(gap["mean"], res["margin_db"]):
-        raise AssertionError(f"15a: margin {res['margin_db']}, gap {gap}")
-
-    arch = seed["search_native"]["architecture"]
-    pipe, _ = planted_demo.train_fixed(
-        arch, PLANTED_SMOKE["--isp-iters"], proxies=str(out / "proxies.ckpt"),
-        device=dev)
-    n = PLANTED_SMOKE["--eval-frames"]
-    card = planted_demo.eval_psnr(pipe, n=n)
-    cpu = planted_demo.eval_psnr(Pipeline(arch, device="cpu").load_state(
-        convert.state_from_jax(convert.state_to_jax(pipe))), n=n)
-    launches = {name: demo["launches"][name] + ft["launches"][name]
-                for name in KERNELS}
-    least = {name: PLANTED_SMOKE["--pretrain-steps"]
-             + 15 * PLANTED_SMOKE["--search-iters"] + PLANTED_FT_STEPS
-             for name in KERNELS}
-    line("phase 15a planted", arch=arch, margin_db=res["margin_db"],
-         ft_gap_db=gap["mean"], card_psnr_db=f"{card:.6f}",
-         cpu_psnr_db=f"{cpu:.6f}", diff_db=f"{abs(card - cpu):.3e}",
-         tol_db=EVAL_PSNR_TOL_DB, demo_s=f"{demo['seconds']:.1f}",
-         ft_divergence_s=f"{ft['seconds']:.1f}",
-         launches=json.dumps(launches).replace(" ", ""),
-         at_least=json.dumps(least).replace(" ", ""),
-         check_s=f"{time.perf_counter() - t0:.1f}")
-    if not abs(card - cpu) <= EVAL_PSNR_TOL_DB:
-        raise AssertionError(f"15a eval_psnr: card {card}, cpu {cpu}")
-    if any(launches[name] < least[name] for name in KERNELS):
-        raise AssertionError(f"15a launches {launches} < {least}")
-    return launches
+            raise AssertionError(f"15a seed {s} step 2 {what}: {rec}")
+    if not _finite(seed["margin_db"]):
+        raise AssertionError(f"15a seed {s}: margin {seed['margin_db']}")
 
 
 def _rehearsal_cli(out: Path) -> dict:

@@ -1,10 +1,12 @@
 """The port's planted demo and ft-divergence tools
 (reconfigisp_tpu_torch/tools/planted_demo.py, ft_divergence.py) against the
-JAX tools of tools/: ablations and architecture strings equal, the
-cross-seed aggregates and the ft gap reproduce the JAX results file
-exactly, held-out PSNR within 1e-3 dB on one converted state, and both
-tools end to end on the CPU at the smallest budgets, every leg, into a
-temporary directory, with the JAX file's keys."""
+JAX tools of tools/: ablations and architecture strings equal, each seed's
+and leg's search options equal, the cross-seed aggregates and the ft gap
+reproduce both packages' committed results files exactly, a sweep resumed
+over a finished seed runs nothing of it, held-out PSNR within 1e-3 dB on
+one converted state, and both tools end to end on the CPU at the smallest
+budgets, every leg, into a temporary directory, with the JAX file's
+keys."""
 
 import copy
 import importlib.util
@@ -27,6 +29,7 @@ from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_RESULTS = REPO / "experiments" / "planted" / "results.json"
+PORT_RESULTS = REPO / "experiments" / "planted_torch" / "results.json"
 BANK = REPO / "experiments" / "proxies" / "default.ckpt"
 PSNR_TOL_DB = 1e-3
 
@@ -61,10 +64,15 @@ def test_ablations_and_format_match_jax(jax_demo, arch):
         rt.Pipeline(abl, device="cpu")
 
 
-def test_aggregate_and_ft_gap_reproduce_the_jax_results():
-    stored = json.loads(JAX_RESULTS.read_text())
+@pytest.mark.parametrize("path", [JAX_RESULTS, PORT_RESULTS],
+                         ids=["jax", "port"])
+def test_aggregate_and_ft_gap_reproduce_the_jax_results(path):
+    """Each file's stored aggregates are `aggregate`'s and `ft_gap`'s of its
+    own seeds: the JAX tool's file, and the port's from the card."""
+    stored = json.loads(path.read_text())
     results = {"seeds": copy.deepcopy(stored["seeds"])}
-    assert planted_demo.aggregate(results, [0, 1, 2])
+    assert planted_demo.aggregate(results,
+                                  sorted(int(s) for s in stored["seeds"]))
     for key in ("margin_db_per_seed", "margin_db_mean", "margin_db_std",
                 "native_archs_across_seeds", "all_legs_agree_per_seed",
                 "all_legs_recover_planted_per_seed", "seeds_finished",
@@ -76,6 +84,121 @@ def test_aggregate_and_ft_gap_reproduce_the_jax_results():
     # no seed finished: nothing to aggregate; no leg table: no gap
     assert not planted_demo.aggregate({"seeds": {}}, [0])
     assert ft_divergence.ft_gap({"seeds": {"0": {}}}, ["0"]) is None
+
+
+SEARCHED = "Bayer_01_Demosaic_03_sRGB_13_13_04"
+LEG_CONFIGS = (("native", "planted_search"), ("proxy", "planted_search_proxy"),
+               ("ft", "planted_search_ft"))
+
+
+def _leg_record(iters, loss=1e-3):
+    return {"architecture": SEARCHED, "loss": loss, "val_loss": loss,
+            "iters": iters, "seconds": 0.0}
+
+
+def _search_stub(calls):
+    """A run_training that records the options it is given."""
+    def run_training(opt, max_iters, device=None):
+        calls.append(opt)
+        return {"architecture": SEARCHED, "loss": 1e-3, "val_loss": 2e-3,
+                "steps_run": max_iters}
+    return run_training
+
+
+@pytest.mark.parametrize("leg", ["native", "proxy", "ft"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_search_options_per_seed_match_jax(jax_demo, monkeypatch, tmp_path,
+                                           seed, leg):
+    """One leg of one seed through both tools' run_one_seed, the other legs
+    cached and the search and step 2 stubbed, fresh and again after a
+    finished leg with a non-finite loss: the same experiment name (per seed
+    past seed 0), manual_seed (offset by the seed), resume (off for the
+    re-run), proxies (each tool's <out>/proxies.ckpt) and darts_ft tuning
+    interval; the port's --ft-interval overrides the ft leg's alone."""
+    import reconfigisp_tpu.search.trainer as jax_trainer
+    monkeypatch.chdir(REPO)
+    jax_calls, port_calls = [], []
+    monkeypatch.setattr(jax_trainer, "run_training", _search_stub(jax_calls))
+    monkeypatch.setattr(planted_demo, "run_training",
+                        _search_stub(port_calls))
+    monkeypatch.setattr(jax_demo, "train_fixed",
+                        lambda *a, **k: (None, {"loss": 1e-3}))
+    monkeypatch.setattr(jax_demo, "eval_psnr", lambda *a, **k: 30.0)
+    monkeypatch.setattr(planted_demo, "train_fixed",
+                        lambda *a, **k: (None, {"loss": 1e-3}))
+    monkeypatch.setattr(planted_demo, "eval_psnr", lambda *a, **k: 30.0)
+    iters, name = 3, dict(LEG_CONFIGS)[leg]
+    name += f"_seed{seed}" if seed else ""
+    for rerun in (False, True):
+        prior = {f"search_{other}": _leg_record(iters)
+                 for other, _ in planted_demo.LEGS if other != leg}
+        if rerun:
+            prior[f"search_{leg}"] = _leg_record(iters, loss=float("nan"))
+        jax_calls.clear()
+        port_calls.clear()
+        jax_demo.run_one_seed(seed, iters, 2, copy.deepcopy(prior),
+                              lambda res: None)
+        planted_demo.run_one_seed(seed, iters, 2, copy.deepcopy(prior),
+                                  lambda res: None, out=str(tmp_path),
+                                  device="cpu")
+        (want,), (got,) = jax_calls, port_calls
+        assert got["name"] == want["name"] == name
+        assert got["train"]["manual_seed"] == \
+            want["train"]["manual_seed"] == 10 + seed
+        assert got["train"]["resume"] == want["train"]["resume"]
+        assert (got["train"]["resume"] is False) == rerun
+        assert Path(got["path"]["experiments_root"]).relative_to(tmp_path) \
+            == Path(want["path"]["experiments_root"]).relative_to(REPO) \
+            == Path("experiments", name)
+        assert want["path"]["pretrain_proxies"] == jax_demo.PROXIES
+        assert got["path"]["pretrain_proxies"] == str(
+            tmp_path / "proxies.ckpt")
+        assert (got["proxy_ft_params"] or {}).get("ft_interval") == \
+            (want["proxy_ft_params"] or {}).get("ft_interval")
+    cfg = dict(planted_demo.LEGS)[leg]
+    tuned = planted_demo._search_options(cfg, seed, str(tmp_path), "p",
+                                         False, 7)
+    assert (tuned["proxy_ft_params"] or {}).get("ft_interval") == (
+        7 if leg == "ft" else None)
+
+
+def test_a_sweep_over_a_finished_seed_runs_nothing_of_it(monkeypatch,
+                                                         tmp_path, capsys):
+    """`--seeds 0`, then `--seeds 0,1` over its results file, the search
+    and step 2 stubbed: the second run searches and trains seed 1 alone,
+    reuses each of seed 0's legs, and aggregates both seeds."""
+    searches, trained = [], []
+
+    def train_fixed(arch, niter, *, seed=0, **kw):
+        trained.append(seed)
+        return arch, {"loss": 1e-3}
+
+    monkeypatch.setattr(planted_demo, "run_training", _search_stub(searches))
+    monkeypatch.setattr(planted_demo, "train_fixed", train_fixed)
+    monkeypatch.setattr(planted_demo, "eval_psnr",
+                        lambda pipe, n=16: 36.0 if pipe == SEARCHED else 35.0)
+    args = ["--device", "cpu", "--skip-pretrain", "--search-iters", "2",
+            "--isp-iters", "2", "--eval-frames", "1", "--out", str(tmp_path)]
+    planted_demo.main(["--seeds", "0", *args])
+    assert [opt["name"] for opt in searches] == [
+        config for _, config in LEG_CONFIGS]
+    assert set(trained) == {0}
+    first = json.loads((tmp_path / "results.json").read_text())["seeds"]["0"]
+    searches.clear()
+    trained.clear()
+    capsys.readouterr()
+    planted_demo.main(["--seeds", "0,1", *args])
+    assert [opt["name"] for opt in searches] == [
+        f"{config}_seed1" for _, config in LEG_CONFIGS]
+    assert [opt["train"]["manual_seed"] for opt in searches] == [11] * 3
+    assert trained and set(trained) == {1}
+    log = capsys.readouterr().out
+    for leg, _ in LEG_CONFIGS:
+        assert f"seed 0: reusing cached {leg} search (2 iters)" in log
+    got = json.loads((tmp_path / "results.json").read_text())
+    assert got["seeds"]["0"] == first
+    assert got["seeds_finished"] == 2 and got["seeds_pending"] == 0
+    assert got["margin_db_per_seed"] == {"0": 1.0, "1": 1.0}
 
 
 def test_eval_psnr_matches_jax_on_one_state(jax_demo):
