@@ -53,6 +53,7 @@ from reconfigisp_tpu_torch.ops.kernels import bilateral, fastnlm, median  # noqa
 from reconfigisp_tpu_torch.parallel import mesh as meshlib
 from reconfigisp_tpu_torch.parallel import space as spacelib
 from reconfigisp_tpu_torch.parallel.tiling import tiled_apply
+from reconfigisp_tpu_torch.utils import tracing
 
 MAGIC = b"RISPTOR1"
 _VERSION = 1
@@ -85,7 +86,8 @@ def make_serving_fn(pipe, *, patch: Optional[int] = None,
                     device=None):
     """mosaic -> sRGB closure over the pipeline's ServingProgram, run in
     inference mode.  `device` defaults to cuda and must be the pipeline's;
-    inputs are moved to it."""
+    inputs are moved to it.  Each call is the root span `serve.frame`
+    (utils/tracing.py)."""
     dev = resolve_device(device)
     if pipe.device != dev:
         raise ValueError(f"pipeline is on {pipe.device}, serving on {dev}")
@@ -93,7 +95,9 @@ def make_serving_fn(pipe, *, patch: Optional[int] = None,
 
     @torch.inference_mode()
     def serve(x) -> torch.Tensor:
-        return program(torch.as_tensor(x, dtype=torch.float32, device=dev))
+        with tracing.span("serve.frame"):
+            return program(torch.as_tensor(x, dtype=torch.float32,
+                                           device=dev))
 
     return serve
 

@@ -32,6 +32,10 @@ inputs it gives the host-read route's value and gradients bit for bit.  A
 replay runs no Python, so no wrapper counts what it launches: the graph
 runner tallies the launches its capture made (`tally_launches`) and adds
 them to the kernels' counts on each replay (`count_launches`).
+
+The backward op's body is the span `<name>.backward` (utils/tracing.py), on
+the device for a CUDA input: in a captured step it times each windowed op's
+backward on every replay, the recompute of the plain form included.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Callable, Optional
 import torch
 
 from reconfigisp_tpu_torch.ops.kernels import _build
+from reconfigisp_tpu_torch.utils import tracing
 
 DIRECT_ROWS = 640  # direct backward up to this many rows (_VJP_DIRECT_ROWS)
 STRIP = 256        # output rows a chunk of the strip backward owns
@@ -49,7 +54,7 @@ STRIP = 256        # output rows a chunk of the strip backward owns
 Plain = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 _static_depth = 0   # open static_bounds() blocks
-_on_launch: dict[str, Callable[[], None]] = {}   # kernel name -> its count
+_on_launch: dict[str, Callable[[int], None]] = {}   # kernel name -> its count
 _tally: Optional[dict] = None   # launches of the open tally_launches() block
 
 
@@ -92,17 +97,17 @@ def tally_launches():
 
 def count_launches(tally: dict) -> None:
     """Add a replay's launches, as its capture tallied them, to the
-    kernels' counts."""
+    kernels' counts: one call a kernel."""
     for name, n in tally.items():
-        for _ in range(n):
-            _on_launch[name]()
+        if n:
+            _on_launch[name](n)
 
 
 def _launched(name: str) -> None:
     if _tally is not None:
         _tally[name] += 1
     else:
-        _on_launch[name]()
+        _on_launch[name](1)
 
 
 def _grads(plain: Plain, x, params, g, needs):
@@ -175,11 +180,12 @@ def _autograd_on():
 
 
 def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
-                on_launch: Callable[[], None]):
+                on_launch: Callable[[int], None]):
     """Define reconfigisp::<name> and its backward op (module docstring).
-    `on_launch` is called once per kernel launch, after it, and nowhere
-    else: not on the CPU, not under fake tensors; within tally_launches()
-    the launch is tallied there instead.  -> the forward op."""
+    `on_launch(n)` adds n launches to the kernel's count: called with 1
+    after each launch, and nowhere else (not on the CPU, not under fake
+    tensors; within tally_launches() the launch is tallied there instead),
+    and with a replay's tally by count_launches.  -> the forward op."""
     _on_launch[name] = on_launch
 
     @torch.library.custom_op(f"reconfigisp::{name}", mutates_args=())
@@ -200,7 +206,8 @@ def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
     def backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor,
                  need_x: bool, need_p: bool) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
-        with _autograd_on():
+        with tracing.span(f"{name}.backward", device=x.is_cuda), \
+                _autograd_on():
             gx, gp = vjp(plain, halo, x, params, g, (need_x, need_p))
         # an input that needs no gradient, or that the output does not
         # depend on (the median's params), gets zeros here and None below

@@ -127,9 +127,9 @@ def fastnlm_plain(x: torch.Tensor, params: torch.Tensor,
     return clip(out / 255.0, 0.0, 1.0)
 
 
-def _count() -> None:
+def _count(n: int) -> None:
     global launches
-    launches += 1
+    launches += n
 
 
 op = _vjp.windowed_op("fastnlm", fastnlm_plain, 3, HALO, _count)

@@ -86,9 +86,9 @@ def median_plain(x: torch.Tensor, params: torch.Tensor,
     return clip(out, 0.0, 1.0)
 
 
-def _count() -> None:
+def _count(n: int) -> None:
     global launches
-    launches += 1
+    launches += n
 
 
 op = _vjp.windowed_op("median", median_plain, 1, HALO, _count)

@@ -12,6 +12,9 @@ rank s of the group runs every size-th group of positions from the s-th,
 blends them into zeros, and `out` and `count` are SUM-reduced over the
 group before the divide: the whole frame's blend, up to the order of the
 sums.
+
+Each group of positions is the span `serve.chunk`, and its accumulate, like
+the final divide, the span `serve.blend` (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from reconfigisp_tpu_torch.parallel import mesh as meshlib
+from reconfigisp_tpu_torch.utils import tracing
 
 
 def feather_mask(size, edge) -> np.ndarray:
@@ -73,18 +77,21 @@ def tiled_apply(fn: Callable, x: torch.Tensor, *, patch: int, stride: int,
     if group is not None:
         starts = starts[dist.get_rank(group)::dist.get_world_size(group)]
     for g in starts:
-        here = positions[g:g + step]
-        tiles = torch.cat([x[:, y0:y0 + patch, x0:x0 + patch, :]
-                           for (y0, x0) in here], dim=0)
-        outs = fn(tiles)
-        if out is None:
-            out = torch.zeros((n, H, W, out_channels), dtype=outs.dtype,
-                              device=x.device)
-            count = torch.zeros((1, H, W, 1), dtype=outs.dtype,
-                                device=x.device)
-        for k, (y0, x0) in enumerate(here):
-            out[:, y0:y0 + patch, x0:x0 + patch, :] += outs[k * n:(k + 1) * n] * mask
-            count[:, y0:y0 + patch, x0:x0 + patch, :] += mask
+        with tracing.span("serve.chunk"):
+            here = positions[g:g + step]
+            tiles = torch.cat([x[:, y0:y0 + patch, x0:x0 + patch, :]
+                               for (y0, x0) in here], dim=0)
+            outs = fn(tiles)
+            with tracing.span("serve.blend", device=x.is_cuda):
+                if out is None:
+                    out = torch.zeros((n, H, W, out_channels),
+                                      dtype=outs.dtype, device=x.device)
+                    count = torch.zeros((1, H, W, 1), dtype=outs.dtype,
+                                        device=x.device)
+                for k, (y0, x0) in enumerate(here):
+                    out[:, y0:y0 + patch, x0:x0 + patch, :] += \
+                        outs[k * n:(k + 1) * n] * mask
+                    count[:, y0:y0 + patch, x0:x0 + patch, :] += mask
     if group is not None:
         if out is None:  # more ranks than groups of positions
             out = torch.zeros((n, H, W, out_channels), dtype=x.dtype,
@@ -92,4 +99,5 @@ def tiled_apply(fn: Callable, x: torch.Tensor, *, patch: int, stride: int,
             count = torch.zeros((1, H, W, 1), dtype=x.dtype, device=x.device)
         meshlib.all_reduce(out, group)
         meshlib.all_reduce(count, group)
-    return out / count
+    with tracing.span("serve.blend", device=x.is_cuda):
+        return out / count

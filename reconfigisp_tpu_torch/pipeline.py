@@ -22,6 +22,7 @@ from torch import nn
 from reconfigisp_tpu_torch.device import resolve_device
 from reconfigisp_tpu_torch.parallel import space
 from reconfigisp_tpu_torch.registry import OpSpec, get_op
+from reconfigisp_tpu_torch.utils import tracing
 
 _DOMAIN_TOKENS = {"Bayer": "bayer", "Demosaic": "demosaic", "sRGB": "srgb"}
 
@@ -107,7 +108,8 @@ class Pipeline(nn.Module):
         latency_ms_per_mp), the sum of the steps' entries in
         registry.LATENCY_MS_PER_MP (None if one has none).  Under a space
         context (parallel/space.py) x is a window, y the window's output and
-        the intermediates are trimmed to the window's owned rows.
+        the intermediates are trimmed to the window's owned rows.  Each
+        step is the span `pipeline.<domain>.<op>` (utils/tracing.py).
         """
         n = x.shape[0]
         mids = {}
@@ -115,7 +117,9 @@ class Pipeline(nn.Module):
             params = self._materialize_params(step_name, spec, n, x.dtype)
             weights = next((self.weights[key] for key in (step_name, spec.name)
                             if key in self.weights), None)
-            x = spec.get_apply(self.use_proxy)(x, params, weights)
+            with tracing.span(f"pipeline.{spec.domain}.{spec.name}",
+                              device=x.is_cuda):
+                x = spec.get_apply(self.use_proxy)(x, params, weights)
             mids[step_name] = x
         if not return_intermediates:
             return x

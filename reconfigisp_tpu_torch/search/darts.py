@@ -19,6 +19,12 @@ passes:
 The first-order step takes the validation gradient of the alphas at the
 current weights in place of 1-4.
 
+The step is the root span `darts.step` and its passes the spans
+`darts.virtual`, `darts.unrolled`, `darts.hessian_pos`, `darts.hessian_neg`
+and `darts.update` (1-5; a first-order step's are `darts.alpha` and
+`darts.update`), each timed on the device for CUDA tensors
+(utils/tracing.py); in a captured step they time every replay.
+
 With a data group (`group=`, the mesh's data axis: the counterpart of the
 JAX step's `axis_name`) the batch is this rank's shard and the criterion
 returns its share of the global loss (utils/losses.py), so summing the
@@ -58,6 +64,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from reconfigisp_tpu_torch.ops.kernels import _vjp
 from reconfigisp_tpu_torch.parallel import space as spacelib
 from reconfigisp_tpu_torch.parallel.dp import reduce_grads
+from reconfigisp_tpu_torch.utils import tracing
 
 log = logging.getLogger(__name__)
 
@@ -160,14 +167,15 @@ def make_darts_step(forward: Callable, criterion: Callable,
         return tree
 
     def step(variables, opt_state, batch, lr_scale):
-        if space is None:
-            return body(variables, opt_state, batch, lr_scale)
-        height = batch["img"].shape[1]
-        if batch["val_img"].shape[1] != height:
-            raise ValueError("the space axis takes training and validation "
-                             "frames of one height")
-        with space.frame(height):
-            return body(variables, opt_state, batch, lr_scale)
+        with tracing.span("darts.step", device=batch["img"].is_cuda):
+            if space is None:
+                return body(variables, opt_state, batch, lr_scale)
+            height = batch["img"].shape[1]
+            if batch["val_img"].shape[1] != height:
+                raise ValueError("the space axis takes training and "
+                                 "validation frames of one height")
+            with space.frame(height):
+                return body(variables, opt_state, batch, lr_scale)
 
     def body(variables, opt_state, batch, lr_scale):
         theta, alphas, omega = (variables["theta"], variables["alphas"],
@@ -181,40 +189,51 @@ def make_darts_step(forward: Callable, criterion: Callable,
         lr_alpha = cfg.lr_alpha * lr_scale
         alphas = _map(torch.detach, alphas)
         theta = _map(torch.detach, theta)
+        on_device = img.is_cuda
 
         if cfg.order == 1:
-            a = _leaf_copies(alphas, True)
-            val_loss, _ = loss_on(theta, a, omega, val_img, val_gt, val_flag)
-            dalpha = reduce(_grad(val_loss, a))
+            with tracing.span("darts.alpha", device=on_device):
+                a = _leaf_copies(alphas, True)
+                val_loss, _ = loss_on(theta, a, omega, val_img, val_gt,
+                                      val_flag)
+                dalpha = reduce(_grad(val_loss, a))
             g_alpha = _map(lambda d: torch.where(
                 torch.isnan(d).any(), torch.zeros_like(d), d), dalpha)
             eps = norm = torch.zeros((), device=val_loss.device)
         else:
             # 1) virtual step: theta_v = theta - lr_meta (mu buf + g)
-            t = _leaf_copies(theta, True)
-            g_w = reduce(_grad(loss_on(t, alphas, omega, img, gt, flag)[0],
-                               t))
-            theta_v = _map(lambda p, buf, g: p - cfg.lr_meta * (
-                cfg.momentum * buf + g), theta, opt_state["momentum"], g_w)
+            with tracing.span("darts.virtual", device=on_device):
+                t = _leaf_copies(theta, True)
+                g_w = reduce(_grad(loss_on(t, alphas, omega, img, gt,
+                                           flag)[0], t))
+                theta_v = _map(lambda p, buf, g: p - cfg.lr_meta * (
+                    cfg.momentum * buf + g), theta, opt_state["momentum"],
+                    g_w)
 
             # 2) the unrolled validation loss's gradients
-            a = _leaf_copies(alphas, True)
-            tv = _leaf_copies(theta_v, True)
-            val_loss, _ = loss_on(tv, a, omega, val_img, val_gt, val_flag)
-            grads = reduce(_grad(val_loss, {"a": a, "tv": tv}))
-            dalpha, dtheta_v = grads["a"], grads["tv"]
+            with tracing.span("darts.unrolled", device=on_device):
+                a = _leaf_copies(alphas, True)
+                tv = _leaf_copies(theta_v, True)
+                val_loss, _ = loss_on(tv, a, omega, val_img, val_gt,
+                                      val_flag)
+                grads = reduce(_grad(val_loss, {"a": a, "tv": tv}))
+                dalpha, dtheta_v = grads["a"], grads["tv"]
 
             # 3), 4) the finite-difference Hessian-vector term
             norm = _global_norm(dtheta_v)
             eps = torch.where(norm < 1e-6, torch.zeros_like(norm),
                               0.01 / torch.clamp(norm, min=1e-6))
 
-            def dalpha_at(sign):
-                t_ = _map(lambda p, d: p + sign * eps * d, theta, dtheta_v)
-                a_ = _leaf_copies(alphas, True)
-                return _grad(loss_on(t_, a_, omega, img, gt, flag)[0], a_)
+            def dalpha_at(sign, name):
+                with tracing.span(name, device=on_device):
+                    t_ = _map(lambda p, d: p + sign * eps * d, theta,
+                              dtheta_v)
+                    a_ = _leaf_copies(alphas, True)
+                    return _grad(loss_on(t_, a_, omega, img, gt, flag)[0],
+                                 a_)
 
-            pos, neg = dalpha_at(1.0), dalpha_at(-1.0)
+            pos = dalpha_at(1.0, "darts.hessian_pos")
+            neg = dalpha_at(-1.0, "darts.hessian_neg")
             denom = torch.where(eps > 0, 2.0 * eps, torch.ones_like(eps))
             hessian = reduce(_map(lambda p_, n_: torch.where(
                 eps > 0, (p_ - n_) / denom, torch.zeros_like(p_)), pos, neg))
@@ -228,26 +247,28 @@ def make_darts_step(forward: Callable, criterion: Callable,
 
             g_alpha = _map(alpha_grad, dalpha, hessian)
 
-        # Adam on the alphas
-        t_adam = opt_state["adam_t"] + 1
-        tf = t_adam.float()
-        bc1 = 1 - cfg.beta1 ** tf
-        bc2 = 1 - cfg.beta2 ** tf
-        m = _map(lambda m_, g: cfg.beta1 * m_ + (1 - cfg.beta1) * g,
-                 opt_state["adam_m"], g_alpha)
-        v = _map(lambda v_, g: cfg.beta2 * v_ + (1 - cfg.beta2) * g * g,
-                 opt_state["adam_v"], g_alpha)
-        new_alphas = _map(lambda p, m_, v_: p - lr_alpha * (m_ / bc1) / (
-            torch.sqrt(v_ / bc2) + cfg.adam_eps), alphas, m, v)
+        with tracing.span("darts.update", device=on_device):
+            # Adam on the alphas
+            t_adam = opt_state["adam_t"] + 1
+            tf = t_adam.float()
+            bc1 = 1 - cfg.beta1 ** tf
+            bc2 = 1 - cfg.beta2 ** tf
+            m = _map(lambda m_, g: cfg.beta1 * m_ + (1 - cfg.beta1) * g,
+                     opt_state["adam_m"], g_alpha)
+            v = _map(lambda v_, g: cfg.beta2 * v_ + (1 - cfg.beta2) * g * g,
+                     opt_state["adam_v"], g_alpha)
+            new_alphas = _map(lambda p, m_, v_: p - lr_alpha * (m_ / bc1) / (
+                torch.sqrt(v_ / bc2) + cfg.adam_eps), alphas, m, v)
 
-        # 5) SGD with momentum on theta at the new alphas (the reference
-        # steps the alphas before the weights, train.py:207-209)
-        t = _leaf_copies(theta, True)
-        train_loss, mids = loss_on(t, new_alphas, omega, img, gt, flag)
-        g_theta = reduce(_grad(train_loss, t))
-        new_buf = _map(lambda buf, g: cfg.momentum * buf + g,
-                       opt_state["momentum"], g_theta)
-        new_theta = _map(lambda p, b: p - lr_theta * b, theta, new_buf)
+            # 5) SGD with momentum on theta at the new alphas (the
+            # reference steps the alphas before the weights,
+            # train.py:207-209)
+            t = _leaf_copies(theta, True)
+            train_loss, mids = loss_on(t, new_alphas, omega, img, gt, flag)
+            g_theta = reduce(_grad(train_loss, t))
+            new_buf = _map(lambda buf, g: cfg.momentum * buf + g,
+                           opt_state["momentum"], g_theta)
+            new_theta = _map(lambda p, b: p - lr_theta * b, theta, new_buf)
 
         new_vars = {"theta": new_theta, "alphas": new_alphas, "omega": omega}
         new_opt = {"momentum": new_buf, "adam_m": m, "adam_v": v,
@@ -372,9 +393,19 @@ class _StepGraph:
     `warmup_launches`, as it is no step of the run; the capture's in
     `launches`, which each replay adds to the kernels' counts.  A capture
     that fails raises, naming the op; nothing falls back to eager steps.
-    `capture_s` is the capture's wall time, `record_s` the part of it that
+    `warmup_s` is the warm-up's host time up to its synchronize,
+    `capture_s` the capture's wall time, `record_s` the part of it that
     ran the step's Python (the rest instantiates the graph), and
-    `pool_bytes` the device memory the capture allocated at its peak."""
+    `pool_bytes` the device memory the capture allocated at its peak.
+    `first_replay_s` is the first replay's host time inside
+    `graph.replay()`, which uploads the graph to the device; `replays`
+    counts the later replays made while no profiler records and
+    `replay_host_s` sums their host time there.  Each replay is the span
+    `search.replay`.  The step's device spans (utils/tracing.py) are
+    captured as timing events in the graph, which every replay records
+    anew: `device_spans()` reads them for the last replay that no profiler
+    recorded (a profiled replay's, where none came before it), as a
+    profiler's own stalls lengthen the replay it records."""
 
     def __init__(self, step, variables, opt_state, batch):
         self.step = step
@@ -383,7 +414,13 @@ class _StepGraph:
         self.batch = {k: v.to(self.device).clone() for k, v in batch.items()}
         self.lr = torch.ones((), dtype=torch.float32, device=self.device)
         args = (variables, opt_state, self.batch, self.lr)
+        self.first_replay_s = None
+        self.replays, self.replay_host_s = 0, 0.0
+        # whether the last replay was profiled (None before the first), and
+        # the device spans of the unprofiled replay before a profiled one
+        self._profiled, self._held = None, None
 
+        t0 = time.perf_counter()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side), _vjp.static_bounds(), \
@@ -391,8 +428,9 @@ class _StepGraph:
             step(*args)
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.warmup_launches = dict(warm)
-
         torch.cuda.synchronize(self.device)
+        self.warmup_s = time.perf_counter() - t0
+
         before = torch.cuda.memory_allocated(self.device)
         torch.cuda.reset_peak_memory_stats(self.device)
         # A finalizer that frees another graph (cudaGraphExecDestroy) in the
@@ -404,7 +442,8 @@ class _StepGraph:
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with _vjp.static_bounds(), _vjp.tally_launches() as tally:
+            with _vjp.static_bounds(), _vjp.tally_launches() as tally, \
+                    tracing.graph_spans() as spans:
                 with torch.cuda.graph(self.graph):
                     new_vars, new_opt, logs = step(*args)
                     for key in ("theta", "alphas"):
@@ -423,6 +462,7 @@ class _StepGraph:
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.max_memory_allocated(self.device) - before
         self.launches = dict(tally)
+        self.spans = spans
         self.mids = logs.pop("_mids", None)
         self.logs = logs
 
@@ -447,7 +487,21 @@ class _StepGraph:
             for k, buf in self.batch.items():
                 buf.copy_(staged[k][i])
             self.lr.copy_(lrs[i])
-            self.graph.replay()
+            profiled = tracing.profiling()
+            if profiled and self._profiled is False:
+                self._held = self._read()
+            with tracing.span("search.replay"):
+                t0 = time.perf_counter()
+                self.graph.replay()
+                dt = time.perf_counter() - t0
+            if self.first_replay_s is None:
+                self.first_replay_s = dt
+            elif not profiled:
+                self.replays += 1
+                self.replay_host_s += dt
+            if not profiled:
+                self._held = None
+            self._profiled = profiled
             _vjp.count_launches(self.launches)
             if mids is not None:
                 n = self.mids.shape[0]
@@ -456,3 +510,18 @@ class _StepGraph:
         if mids is not None:
             logs["_mids"] = mids
         return self.variables, self.opt_state, logs
+
+    def device_spans(self) -> list:
+        """[(name, parent, ms)] of the step's captured spans in the last
+        unprofiled replay (class docstring), the parent an index into the
+        list; waits for the replay.  Empty before the first replay."""
+        if self._profiled is None:
+            return []
+        return self._held if self._held is not None else self._read()
+
+    def _read(self) -> list:
+        out = []
+        for name, parent, start, end in self.spans:
+            end.synchronize()
+            out.append((name, parent, start.elapsed_time(end)))
+        return out

@@ -56,7 +56,7 @@ from reconfigisp_tpu_torch.search.darts import (
     DartsConfig, _map, init_darts_opt_state, make_darts_multi_step,
     make_darts_step)
 from reconfigisp_tpu_torch.supernet import SuperNet
-from reconfigisp_tpu_torch.utils import checkpoint, losses
+from reconfigisp_tpu_torch.utils import checkpoint, losses, tracing
 from reconfigisp_tpu_torch.utils.logging_utils import (
     MetricsLogger, setup_logger)
 from reconfigisp_tpu_torch.utils.schedule import make_schedule
@@ -747,7 +747,10 @@ def _probe_access_slack(opt: dict, step_idx: int, n_probe: int = 2) -> int:
 class _Trace:
     """train.trace_steps [a, b]: a torch.profiler trace from before step
     a + 1 to after step b, written as a Chrome trace under `trace_dir` (the
-    JAX package's jax.profiler trace)."""
+    JAX package's jax.profiler trace), and beside it spans.json: the spans
+    the traced steps recorded (utils/tracing.py) and, for a step captured
+    as a CUDA graph, the graph's device spans in its last replay and its
+    counters."""
 
     def __init__(self, steps, trace_dir: str, device: torch.device, logger):
         self.steps = [int(s) for s in steps] if steps else None
@@ -761,17 +764,35 @@ class _Trace:
 
     def before(self, step_idx: int) -> None:
         if self.steps and step_idx == self.steps[0]:
+            tracing.reset()
             self.prof = torch.profiler.profile(activities=self.activities)
             self.prof.__enter__()
 
-    def after(self, step_idx: int) -> None:
+    def after(self, step_idx: int, graph=None) -> None:
+        """`graph`: the step's CUDA graph runner (DartsTrainer.graph)."""
         if self.prof is not None and step_idx == self.steps[1]:
             self.prof.__exit__(None, None, None)
             os.makedirs(self.dir, exist_ok=True)
             path = os.path.join(self.dir, "trace.json")
             self.prof.export_chrome_trace(path)
             self.prof = None
-            self.logger.info(f"profile trace written to {path}")
+            with open(os.path.join(self.dir, "spans.json"), "w") as f:
+                json.dump({"spans": [s._asdict() for s in tracing.spans()],
+                           "graph": _graph_record(graph)}, f, indent=1)
+            self.logger.info(f"profile trace and spans written to "
+                             f"{self.dir}")
+
+
+def _graph_record(graph) -> Optional[dict]:
+    """The graph runner's device spans in its last replay and its
+    counters, None without a graph."""
+    if graph is None:
+        return None
+    return {"device_spans": [{"name": n, "parent": p, "ms": ms}
+                             for n, p, ms in graph.device_spans()],
+            **{k: getattr(graph, k) for k in (
+                "warmup_s", "capture_s", "record_s", "pool_bytes",
+                "first_replay_s", "replays", "replay_host_s")}}
 
 
 def run_training(opt: dict, *, max_iters: Optional[int] = None,
@@ -938,7 +959,7 @@ def _run_search(opt, dataset, batch_size, niter, seed, generator, dev,
         trace.before(trainer.step_idx)
         t_step = time.time()
         logs = trainer.search_step(tb, vb)
-        trace.after(trainer.step_idx)
+        trace.after(trainer.step_idx, trainer.graph)
         if isinstance(trainer, DartsFtTrainer):
             trainer.record_intermediates(tb)
             if trainer.step_idx % trainer.ft_interval == 0:

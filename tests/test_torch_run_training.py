@@ -270,13 +270,21 @@ def test_unported_models_raise(model, match, tmp_path):
 def test_trace_steps_write_a_chrome_trace(tmp_path):
     """train.trace_steps [a, b]: a torch.profiler trace of steps a+1..b as
     a Chrome trace under <experiments>/trace (the JAX package's
-    jax.profiler trace)."""
+    jax.profiler trace), with the steps' spans (utils/tracing.py) among its
+    annotations and in spans.json beside it; eager steps have no graph."""
     opt = _options("darts", tmp_path)
     opt = _with(opt, 2, 0, trace_steps=[0, 2])
     summary = run_training(config.parse_dict(opt, root=str(tmp_path / "r")),
                            device="cpu")
     assert summary["steps"] == 2
-    trace = json.loads((tmp_path / "r" / "experiments" / "t_darts" / "trace"
-                        / "trace.json").read_text())
+    out = tmp_path / "r" / "experiments" / "t_darts" / "trace"
+    trace = json.loads((out / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("conv" in n for n in names)
+    assert {"darts.step", "darts.virtual", "darts.update"} <= names
+    spans = json.loads((out / "spans.json").read_text())
+    assert spans["graph"] is None
+    steps = [s for s in spans["spans"] if s["parent"] is None]
+    assert [s["name"] for s in steps] == ["darts.step"] * 2
+    assert [s["request"] for s in steps] == [0, 1]
+    assert all(s["host_s"] > 0 for s in spans["spans"])
