@@ -39,7 +39,8 @@ Phases, one line each:
      losses and logits agree.  Then each kernel's gradient through its
      custom op's autograd against the plain form's: bit for bit where the
      backward is direct (the training batch and the search batch
-     4x48x48x3), within STRIP_TOL where it goes by strips;
+     4x48x48x3), within STRIP_TOL where it goes by strips; fast NLM's
+     backward kernel within NLM_GRAD_RTOL of the largest value;
   8. step-1 search: the per-op latency table at 1024x1024 (native and
      proxy ops), installed; then configs/SID_search.yaml through the port's
      config.parse (3 sRGB slots of 15 ops, native, batch 4 of 48x48 crops,
@@ -267,6 +268,11 @@ TRAIN_LOSS_RTOL = 1e-6
 # are added (1e-5); the params' gradient, a sum over the frame, in another
 # order (1e-5 of its largest value).
 STRIP_TOL = 1e-5
+# Fast NLM's backward kernel against the plain form's autograd, at every
+# frame size: y and the clip's mask in the plain form's arithmetic, the
+# gradient's sums in another order, and the params' a sum over every pixel
+# and offset that cancels; 1e-4 of each gradient's largest value.
+NLM_GRAD_RTOL = 1e-4
 # (case, x shape, radius per image, fast-NLM block radius) of the gradient
 # check: SID_isp's training batch and SID_search's search batch, whose 192
 # and 48 rows take the direct backward, and a 1024-row frame at radius 7,
@@ -448,6 +454,23 @@ def fastnlm_bound(x: torch.Tensor, params: torch.Tensor):
     distinct = sum(((2 * s + 1) ** 2 - 1) // 2 for s in radii) * h * w * c
     moved = 2 * x.numel() * 4 + params.numel() * 4
     return _bound(moved, 14 * distinct, distinct)
+
+
+def fastnlm_backward_bound(x: torch.Tensor, params: torch.Tensor):
+    """Least time for fast NLM's gradient for x and params on these inputs.
+    Bytes: x, params and the cotangent read and gx and gp written once.
+    Operations, as fastnlm_bound counts them, per pixel and channel over
+    each image's own search window and distinct offset: the forward's 14
+    and one exp to form the weight again (the op keeps no residuals), and
+    for each of the two pixels the offset pairs the weight's gradient (a
+    subtract and a multiply, 2), the box sum's (2), the adjoint box with
+    running sums (5), the difference's 2 t gD (2) and three adds into gx
+    (3): 28 more."""
+    n, h, w, c = x.shape
+    radii = kb.size01_to_radius(params[:, 1]).tolist()
+    distinct = sum(((2 * s + 1) ** 2 - 1) // 2 for s in radii) * h * w * c
+    moved = 3 * x.numel() * 4 + 2 * params.numel() * 4
+    return _bound(moved, 42 * distinct, distinct)
 
 
 BOUNDS = {"bilateral": bilateral_bound, "median": median_bound,
@@ -1019,7 +1042,8 @@ def phase_gradients(dev) -> None:
     """Each kernel's gradient through its custom op's autograd against the
     plain form's autograd, for x and params, of sum(k(x, p) g): at the
     training batch, where the backward is direct, bit for bit; at a
-    1024-row frame, radius 7, where it goes by strips, within STRIP_TOL."""
+    1024-row frame, radius 7, where it goes by strips, within STRIP_TOL.
+    Fast NLM's, its backward kernel's, within NLM_GRAD_RTOL at all three."""
     gen = torch.Generator(device=dev).manual_seed(4)
     for name, (mod, plain, *_) in KERNELS.items():
         for case, shape, radii, block in GRAD_CASES:
@@ -1045,7 +1069,13 @@ def phase_gradients(dev) -> None:
                  shape=shape, radius=max(radii),
                  max_abs_diff_x=f"{dx:.3e}", max_abs_diff_params=f"{dp:.3e}",
                  params_grad_max=f"{scale:.3e}")
-            if shape[1] <= _vjp.DIRECT_ROWS:
+            if name == "fastnlm":
+                wmax = float(wx.abs().max())
+                if not (dx <= NLM_GRAD_RTOL * wmax
+                        and dp <= NLM_GRAD_RTOL * scale):
+                    raise AssertionError(f"fastnlm {case}: {dx}, {dp} > "
+                                         f"{NLM_GRAD_RTOL} of {wmax}, {scale}")
+            elif shape[1] <= _vjp.DIRECT_ROWS:
                 same = torch.equal(gx, wx) and (wp is None
                                                 or torch.equal(gp, wp))
                 if not same:
@@ -2630,8 +2660,11 @@ def phase_dispatch_sid(dev, bank) -> dict:
              replay_launches=json.dumps(graph.launches).replace(" ", ""),
              warmup_launches=json.dumps(graph.warmup_launches)
              .replace(" ", ""))
-        if run["launches"] != expected or graph.launches != {
-                name: 15 for name in KERNELS}:
+        forward = {name: n for name, n in graph.launches.items()
+                   if name in KERNELS}
+        if run["launches"] != expected or forward != {
+                name: 15 for name in KERNELS} \
+                or graph.launches["fastnlm.backward"] % 15:
             raise AssertionError(f"captured K={k}: launches {run['launches']}"
                                  f", a replay {graph.launches}")
         # K = 1 logs every step; K = 4 returns step 4's logs at step 4 and

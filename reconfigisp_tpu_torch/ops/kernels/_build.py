@@ -9,7 +9,11 @@ failed build raises: there is no fallback.
 Every source exports `int <name>_forward(x, params, out, n, h, w, c,
 stream)` over NHWC float32; `launch` is the call of the CUDA implementation
 of each kernel's custom op (ops/kernels/_vjp.py), and `check` the operand
-checks it shares with the op's fake implementation.
+checks it shares with the op's fake implementation.  A source with a
+backward kernel also exports `int <name>_backward(x, params, g, gx, gp,
+scratch, n, h, w, c, group, launches, stream)` and the size of its scratch,
+`long long <name>_backward_scratch(n, h, w, c, group)`; `launch_backward`
+calls them.
 """
 
 from __future__ import annotations
@@ -150,3 +154,41 @@ def launch(name: str, x: torch.Tensor, params: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out
+
+
+def launch_backward(name: str, x: torch.Tensor, params: torch.Tensor,
+                    g: torch.Tensor, n_params: int, group: int):
+    """Run csrc/<name>.cu's backward on x's device and current stream: the
+    gradient of sum(<name>(x, params) * g) for x and params, its search
+    offsets in launch groups of `group`.  -> (gx, gp, launches).  The
+    outputs and the kernel's scratch are allocated here.  Raises on
+    operands the kernel does not take and on a CUDA error, as `launch`."""
+    check(name, x, params, n_params)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"the cotangent must match x, got {tuple(g.shape)} "
+                         f"{g.dtype} on {g.device}")
+    x, params, g = x.contiguous(), params.contiguous(), g.contiguous()
+    lib = load(name)
+    size = getattr(lib, f"{name}_backward_scratch")
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    nbytes = size(*x.shape, group)
+    if nbytes <= 0:
+        raise ValueError(f"{name} backward kernel does not take "
+                         f"{tuple(x.shape)} in groups of {group}")
+    fn = getattr(lib, f"{name}_backward")
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    gx, gp = torch.empty_like(x), torch.empty_like(params)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+    launches = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), params.data_ptr(), g.data_ptr(), gx.data_ptr(),
+                gp.data_ptr(), scratch.data_ptr(), *x.shape, group,
+                ctypes.addressof(launches), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    return gx, gp, launches.value

@@ -11,18 +11,21 @@ exported program holds each kernel as one opaque call, and runs the kernel
 on the card and the plain form on the CPU.
 
 The JAX package has no backward kernel: its custom_vjp differentiates the
-jnp form.  So here the forward op's autograd keeps x and params, and its
-backward is the backward op, whose implementation (on either device)
-recomputes the plain form from them under autograd and returns that form's
-gradient: directly for a frame of at most DIRECT_ROWS rows, and above that
-strip by strip (`strip_vjp`), which bounds the plain form's tap residuals at
-STRIP + 2 halo rows.  On the same saved inputs the direct gradient is the
-plain form's own, bit for bit: the plain forms pad by slices and flips
-(ops/nn.reflect), so their backward adds in a fixed order.  The backward op
-has no autograd of its own: the kernels are differentiable once, as the DARTS
-step needs (it differentiates each kernel once).  `vjp` and `strip_vjp` are
-plain functions of the plain form, so the CPU tests reach the code the
-backward runs.
+jnp form.  Here the forward op's autograd keeps x and params, and its
+backward is the backward op.  Where the kernel has a backward kernel
+(fast-NLM's, csrc/fastnlm.cu), the op's CUDA implementation launches it and
+counts its launches under `<name>.backward`; otherwise, and on the CPU
+always, the implementation recomputes the plain form from x and params
+under autograd and returns that form's gradient: directly for a frame of at
+most DIRECT_ROWS rows, and above that strip by strip (`strip_vjp`), which
+bounds the plain form's tap residuals at STRIP + 2 halo rows.  On the same
+saved inputs the direct gradient is the plain form's own, bit for bit: the
+plain forms pad by slices and flips (ops/nn.reflect), so their backward
+adds in a fixed order.  The backward op has no autograd of its own: the
+kernels are differentiable once, as the DARTS step needs (it
+differentiates each kernel once).  `vjp` and `strip_vjp` are plain
+functions of the plain form, so the CPU tests reach the code the backward
+runs.
 
 A CUDA graph (search/darts.make_darts_multi_step) captures the backward op
 with the rest of a search step.  A sync is an error inside a capture, so
@@ -35,7 +38,8 @@ them to the kernels' counts on each replay (`count_launches`).
 
 The backward op's body is the span `<name>.backward` (utils/tracing.py), on
 the device for a CUDA input: in a captured step it times each windowed op's
-backward on every replay, the recompute of the plain form included.
+backward on every replay, the backward kernel's launches or the recompute
+of the plain form.
 """
 
 from __future__ import annotations
@@ -103,11 +107,11 @@ def count_launches(tally: dict) -> None:
             _on_launch[name](n)
 
 
-def _launched(name: str) -> None:
+def _launched(name: str, n: int = 1) -> None:
     if _tally is not None:
-        _tally[name] += 1
+        _tally[name] += n
     else:
-        _on_launch[name](1)
+        _on_launch[name](n)
 
 
 def _grads(plain: Plain, x, params, g, needs):
@@ -180,13 +184,20 @@ def _autograd_on():
 
 
 def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
-                on_launch: Callable[[int], None]):
+                on_launch: Callable[[int], None],
+                backward_kernel: Optional[tuple] = None):
     """Define reconfigisp::<name> and its backward op (module docstring).
     `on_launch(n)` adds n launches to the kernel's count: called with 1
     after each launch, and nowhere else (not on the CPU, not under fake
     tensors; within tally_launches() the launch is tallied there instead),
-    and with a replay's tally by count_launches.  -> the forward op."""
+    and with a replay's tally by count_launches.  `backward_kernel`, where
+    the kernel has one, is (launch, on_launch): launch(x, params, g) ->
+    (gx, gp, launches) runs it for a CUDA input in place of `vjp`, and its
+    launches are counted as the forward's, under `<name>.backward`.  -> the
+    forward op."""
     _on_launch[name] = on_launch
+    if backward_kernel is not None:
+        _on_launch[f"{name}.backward"] = backward_kernel[1]
 
     @torch.library.custom_op(f"reconfigisp::{name}", mutates_args=())
     def forward(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
@@ -206,9 +217,14 @@ def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
     def backward(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor,
                  need_x: bool, need_p: bool) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
-        with tracing.span(f"{name}.backward", device=x.is_cuda), \
-                _autograd_on():
-            gx, gp = vjp(plain, halo, x, params, g, (need_x, need_p))
+        with tracing.span(f"{name}.backward", device=x.is_cuda):
+            if x.is_cuda and backward_kernel is not None:
+                gx, gp, launches = backward_kernel[0](x, params, g)
+                _launched(f"{name}.backward", launches)
+                gx, gp = (gx if need_x else None), (gp if need_p else None)
+            else:
+                with _autograd_on():
+                    gx, gp = vjp(plain, halo, x, params, g, (need_x, need_p))
         # an input that needs no gradient, or that the output does not
         # depend on (the median's params), gets zeros here and None below
         gx = torch.zeros_like(x) if gx is None else gx

@@ -12,10 +12,15 @@ frame edges it differs from both.)  The kernel sums each box horizontally
 first and takes exp2 of the box sum times one scale per image, where this
 form divides by 2b+1 twice and by h^2 and takes exp: the two agree within
 5e-5.  The op's backward is fastnlm_plain's gradient, as the JAX backward
-differentiates _fastnlm_jnp, so a CUDA input that requires grad launches the
-kernel too; `fastnlm` calls the op, except for a CPU input that autograd
-differentiates, which runs fastnlm_plain itself.  One output row reaches
-HALO rows of input: the search radius and the block radius, 7 each at most.
+differentiates _fastnlm_jnp: on the card a backward kernel of its own
+(csrc/fastnlm.cu's fastnlm_backward, `backward_launches` its launches),
+which recomputes y and the clip's mask in the plain form's arithmetic and
+sums the gradient in another order, within 1e-4 of the largest gradient
+value; on the CPU the plain form's autograd (_vjp.vjp).  So a CUDA input
+that requires grad launches the forward kernel too; `fastnlm` calls the op,
+except for a CPU input that autograd differentiates, which runs
+fastnlm_plain itself.  One output row reaches HALO rows of input: the
+search radius and the block radius, 7 each at most.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 [block01, search01, decay01].  The block radius comes from params[0, 0] for
@@ -36,8 +41,13 @@ from reconfigisp_tpu_torch.ops.kernels.bilateral import size01_to_radius
 from reconfigisp_tpu_torch.ops.nn import clip, reflect
 
 HALO = 2 * MAX_R
+OFFSETS = (2 * MAX_R + 1) ** 2
+# float32 values each of the backward kernel's two per-offset fields holds
+# at most: a launch group's offsets times N H W C
+SCRATCH_VALUES = 1 << 23
 
 launches = 0  # kernel launches since the caller last set it to 0
+backward_launches = 0  # backward kernel launches, the same way
 
 
 def box_filter(d: torch.Tensor, b: int) -> torch.Tensor:
@@ -132,7 +142,26 @@ def _count(n: int) -> None:
     launches += n
 
 
-op = _vjp.windowed_op("fastnlm", fastnlm_plain, 3, HALO, _count)
+def _count_backward(n: int) -> None:
+    global backward_launches
+    backward_launches += n
+
+
+def backward_group(x: torch.Tensor) -> int:
+    """Search offsets a launch group of the backward kernel covers: as many
+    as keep its per-offset fields within SCRATCH_VALUES, all 225 at the
+    search step's 4 x 48^2 x 3."""
+    return max(1, min(OFFSETS, SCRATCH_VALUES // x.numel()))
+
+
+def backward_kernel(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor):
+    """The backward kernel on CUDA tensors -> (gx, gp, launches)."""
+    return _build.launch_backward("fastnlm", x, params, g, 3,
+                                  backward_group(x))
+
+
+op = _vjp.windowed_op("fastnlm", fastnlm_plain, 3, HALO, _count,
+                      (backward_kernel, _count_backward))
 
 
 def fastnlm(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
