@@ -40,7 +40,8 @@ Phases, one line each:
      custom op's autograd against the plain form's: bit for bit where the
      backward is direct (the training batch and the search batch
      4x48x48x3), within STRIP_TOL where it goes by strips; fast NLM's
-     backward kernel within NLM_GRAD_RTOL of the largest value;
+     and the bilateral's backward kernels within BACKWARD_KERNEL_RTOL of
+     the largest value;
   8. step-1 search: the per-op latency table at 1024x1024 (native and
      proxy ops), installed; then configs/SID_search.yaml through the port's
      config.parse (3 sRGB slots of 15 ops, native, batch 4 of 48x48 crops,
@@ -268,11 +269,12 @@ TRAIN_LOSS_RTOL = 1e-6
 # are added (1e-5); the params' gradient, a sum over the frame, in another
 # order (1e-5 of its largest value).
 STRIP_TOL = 1e-5
-# Fast NLM's backward kernel against the plain form's autograd, at every
-# frame size: y and the clip's mask in the plain form's arithmetic, the
-# gradient's sums in another order, and the params' a sum over every pixel
-# and offset that cancels; 1e-4 of each gradient's largest value.
-NLM_GRAD_RTOL = 1e-4
+# Fast NLM's and the bilateral's backward kernels against the plain form's
+# autograd, at every frame size: y and the clip's mask in the plain form's
+# arithmetic, the gradient's sums in another order, and the params' a sum
+# over every pixel and offset that cancels; 1e-4 of each gradient's
+# largest value.
+BACKWARD_KERNEL_RTOL = 1e-4
 # (case, x shape, radius per image, fast-NLM block radius) of the gradient
 # check: SID_isp's training batch and SID_search's search batch, whose 192
 # and 48 rows take the direct backward, and a 1024-row frame at radius 7,
@@ -471,6 +473,23 @@ def fastnlm_backward_bound(x: torch.Tensor, params: torch.Tensor):
     distinct = sum(((2 * s + 1) ** 2 - 1) // 2 for s in radii) * h * w * c
     moved = 3 * x.numel() * 4 + 2 * params.numel() * 4
     return _bound(moved, 42 * distinct, distinct)
+
+
+def bilateral_backward_bound(x: torch.Tensor, params: torch.Tensor):
+    """Least time for the bilateral's gradient for x and params on these
+    inputs.  Bytes: x, params and the cotangent read and gx and gp written
+    once.  Operations, as bilateral_bound counts them, over each image's
+    own window: the forward's again to form the weights, N and D (the op
+    keeps no residuals: 4 a tap, 3 a distinct exp, and the distinct exps),
+    and 13 more a tap for the gradient: the weight's gradient (a subtract
+    and two multiplies, 3), the centre's term (2) and its add (1), the
+    tap's term A w - B (3), and the two params sums (4)."""
+    n, h, w, c = x.shape
+    radii = kb.size01_to_radius(params[:, 0]).tolist()
+    taps = sum((2 * r + 1) ** 2 for r in radii) * h * w * c
+    exps = sum(((2 * r + 1) ** 2 - 1) // 2 for r in radii) * h * w * c
+    moved = 3 * x.numel() * 4 + 2 * params.numel() * 4
+    return _bound(moved, 17 * taps + 3 * exps, exps)
 
 
 BOUNDS = {"bilateral": bilateral_bound, "median": median_bound,
@@ -1043,7 +1062,8 @@ def phase_gradients(dev) -> None:
     plain form's autograd, for x and params, of sum(k(x, p) g): at the
     training batch, where the backward is direct, bit for bit; at a
     1024-row frame, radius 7, where it goes by strips, within STRIP_TOL.
-    Fast NLM's, its backward kernel's, within NLM_GRAD_RTOL at all three."""
+    Fast NLM's and the bilateral's, their backward kernels', within
+    BACKWARD_KERNEL_RTOL at all three."""
     gen = torch.Generator(device=dev).manual_seed(4)
     for name, (mod, plain, *_) in KERNELS.items():
         for case, shape, radii, block in GRAD_CASES:
@@ -1069,12 +1089,13 @@ def phase_gradients(dev) -> None:
                  shape=shape, radius=max(radii),
                  max_abs_diff_x=f"{dx:.3e}", max_abs_diff_params=f"{dp:.3e}",
                  params_grad_max=f"{scale:.3e}")
-            if name == "fastnlm":
+            if name in ("fastnlm", "bilateral"):
                 wmax = float(wx.abs().max())
-                if not (dx <= NLM_GRAD_RTOL * wmax
-                        and dp <= NLM_GRAD_RTOL * scale):
-                    raise AssertionError(f"fastnlm {case}: {dx}, {dp} > "
-                                         f"{NLM_GRAD_RTOL} of {wmax}, {scale}")
+                if not (dx <= BACKWARD_KERNEL_RTOL * wmax
+                        and dp <= BACKWARD_KERNEL_RTOL * scale):
+                    raise AssertionError(
+                        f"{name} {case}: {dx}, {dp} > "
+                        f"{BACKWARD_KERNEL_RTOL} of {wmax}, {scale}")
             elif shape[1] <= _vjp.DIRECT_ROWS:
                 same = torch.equal(gx, wx) and (wp is None
                                                 or torch.equal(gp, wp))
@@ -2629,6 +2650,16 @@ def _profile_step(run) -> dict:
             "kernels": kernels, "copies": len(spans) - kernels}
 
 
+def _replay_tally_ok(launches: dict) -> bool:
+    """A captured SID_search step's tally: 15 launches of each forward
+    kernel, the bilateral's backward kernel 3 an application and fast
+    NLM's a multiple of 15 (its launch groups)."""
+    forward = {name: n for name, n in launches.items() if name in KERNELS}
+    return (forward == {name: 15 for name in KERNELS}
+            and launches["bilateral.backward"] == 15 * 3
+            and launches["fastnlm.backward"] % 15 == 0)
+
+
 def phase_dispatch_sid(dev, bank) -> dict:
     """12a: SID_search order 2, DISPATCH_STEPS steps eager, captured at
     K = 1 and at K = DISPATCH_K, from one start on the same planted
@@ -2660,11 +2691,8 @@ def phase_dispatch_sid(dev, bank) -> dict:
              replay_launches=json.dumps(graph.launches).replace(" ", ""),
              warmup_launches=json.dumps(graph.warmup_launches)
              .replace(" ", ""))
-        forward = {name: n for name, n in graph.launches.items()
-                   if name in KERNELS}
-        if run["launches"] != expected or forward != {
-                name: 15 for name in KERNELS} \
-                or graph.launches["fastnlm.backward"] % 15:
+        if run["launches"] != expected or not _replay_tally_ok(
+                graph.launches):
             raise AssertionError(f"captured K={k}: launches {run['launches']}"
                                  f", a replay {graph.launches}")
         # K = 1 logs every step; K = 4 returns step 4's logs at step 4 and
@@ -3151,7 +3179,7 @@ def phase_dp_nccl(tmp: Path, serial_ms: float, phase12_ms: float) -> dict:
              capture_s=f"{run['capture_s']:.2f}",
              launches=json.dumps(run["launches"]).replace(" ", ""))
         if run["launches"] != {name: 15 * DP_SEARCH_STEPS for name in KERNELS} \
-                or run["replay_launches"] != {name: 15 for name in KERNELS}:
+                or not _replay_tally_ok(run["replay_launches"]):
             raise AssertionError(f"13c K={k}: {run['launches']}")
         for name in KERNELS:
             total[name] += run["launches"][name]

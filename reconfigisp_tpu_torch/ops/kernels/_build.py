@@ -12,8 +12,9 @@ of each kernel's custom op (ops/kernels/_vjp.py), and `check` the operand
 checks it shares with the op's fake implementation.  A source with a
 backward kernel also exports `int <name>_backward(x, params, g, gx, gp,
 scratch, n, h, w, c, group, launches, stream)` and the size of its scratch,
-`long long <name>_backward_scratch(n, h, w, c, group)`; `launch_backward`
-calls them.
+`long long <name>_backward_scratch(n, h, w, c, group)`, where `group` is
+fast-NLM's offsets a launch group and 1 for a kernel without groups (the
+bilateral's); `launch_backward` calls them.
 """
 
 from __future__ import annotations
@@ -157,10 +158,10 @@ def launch(name: str, x: torch.Tensor, params: torch.Tensor,
 
 
 def launch_backward(name: str, x: torch.Tensor, params: torch.Tensor,
-                    g: torch.Tensor, n_params: int, group: int):
+                    g: torch.Tensor, n_params: int, group: int = 1):
     """Run csrc/<name>.cu's backward on x's device and current stream: the
-    gradient of sum(<name>(x, params) * g) for x and params, its search
-    offsets in launch groups of `group`.  -> (gx, gp, launches).  The
+    gradient of sum(<name>(x, params) * g) for x and params, fast-NLM's
+    search offsets in launch groups of `group`.  -> (gx, gp, launches).  The
     outputs and the kernel's scratch are allocated here.  Raises on
     operands the kernel does not take and on a CUDA error, as `launch`."""
     check(name, x, params, n_params)

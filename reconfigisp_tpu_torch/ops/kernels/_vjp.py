@@ -13,10 +13,11 @@ on the card and the plain form on the CPU.
 The JAX package has no backward kernel: its custom_vjp differentiates the
 jnp form.  Here the forward op's autograd keeps x and params, and its
 backward is the backward op.  Where the kernel has a backward kernel
-(fast-NLM's, csrc/fastnlm.cu), the op's CUDA implementation launches it and
-counts its launches under `<name>.backward`; otherwise, and on the CPU
-always, the implementation recomputes the plain form from x and params
-under autograd and returns that form's gradient: directly for a frame of at
+(fast-NLM's and the bilateral's, csrc/fastnlm.cu and csrc/bilateral.cu),
+the op's CUDA implementation launches it and counts its launches under
+`<name>.backward`; otherwise (the median's), and on the CPU always, the
+implementation recomputes the plain form from x and params under autograd
+and returns that form's gradient: directly for a frame of at
 most DIRECT_ROWS rows, and above that strip by strip (`strip_vjp`), which
 bounds the plain form's tap residuals at STRIP + 2 halo rows.  On the same
 saved inputs the direct gradient is the plain form's own, bit for bit: the

@@ -7,10 +7,15 @@ for a CUDA tensor and counts the launch in `launches`, and for a tensor on
 the CPU computes `bilateral_plain`, the same function in PyTorch (the form
 of reconfigisp_tpu/ops/denoise.py:_bilateral_jnp), which is also the
 kernel's reference on the card.  The op's backward is bilateral_plain's
-gradient, so a CUDA input that requires grad launches the kernel too; HALO
-is the rows of input one output row reaches, for the strip backward.
-`bilateral` calls the op, except for a CPU input that autograd
-differentiates: that runs bilateral_plain itself (_vjp.plain_here).
+gradient: on the card a backward kernel of its own (csrc/bilateral.cu's
+bilateral_backward, `backward_launches` its launches), which recomputes y
+and the clip's mask in the plain form's arithmetic and sums the gradient
+in another order, within 1e-4 of the largest gradient value; on the CPU
+the plain form's autograd (_vjp.vjp), where HALO is the rows of input one
+output row reaches, for the strip backward.  So a CUDA input that requires
+grad launches the forward kernel too.  `bilateral` calls the op, except for
+a CPU input that autograd differentiates: that runs bilateral_plain itself
+(_vjp.plain_here).
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 3) in [0, 1]:
 [window01, sigma_color01, sigma_space01]; radius = clip(floor(7 window01),
@@ -31,6 +36,7 @@ MAX_R = _build.MAX_R
 HALO = MAX_R
 
 launches = 0  # kernel launches since the caller last set it to 0
+backward_launches = 0  # backward kernel launches, the same way
 
 
 def size01_to_radius(p: torch.Tensor) -> torch.Tensor:
@@ -83,7 +89,18 @@ def _count(n: int) -> None:
     launches += n
 
 
-op = _vjp.windowed_op("bilateral", bilateral_plain, 3, HALO, _count)
+def _count_backward(n: int) -> None:
+    global backward_launches
+    backward_launches += n
+
+
+def backward_kernel(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor):
+    """The backward kernel on CUDA tensors -> (gx, gp, launches)."""
+    return _build.launch_backward("bilateral", x, params, g, 3)
+
+
+op = _vjp.windowed_op("bilateral", bilateral_plain, 3, HALO, _count,
+                      (backward_kernel, _count_backward))
 
 
 def bilateral(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

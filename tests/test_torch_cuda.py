@@ -3,8 +3,9 @@ PyTorch forms, on the card, forward and backward, a few steps of step-2
 training through them, the supernet and a second-order DARTS step through them,
 the train and test CLIs on the card, the YOLOv3 evaluator's forward and
 criterion gradient on the card against the CPU, and the kernels as custom
-ops: opcheck, their gradients, fast NLM's backward kernel repeated and
-replayed bit for bit, and serving artifacts exported on the card and on the
+ops: opcheck, their gradients, fast NLM's and the bilateral's backward
+kernels repeated and replayed bit for bit, and serving artifacts exported
+on the card and on the
 CPU; the search step captured as a CUDA graph against the eager step,
 K-step dispatch, launch counts under replay, and a host read inside a
 capture raising.
@@ -211,6 +212,7 @@ def test_wrappers_copy_strided_input(cuda, name):
 _PLAIN = {"bilateral": kb.bilateral_plain, "median": km.median_plain,
           "fastnlm": kf.fastnlm_plain}
 _MODULES = {"bilateral": kb, "median": km, "fastnlm": kf}
+_BACKWARD_KERNELS = ("bilateral", "fastnlm")   # a backward kernel on the card
 
 
 def _grad_rows(name, n):
@@ -228,14 +230,13 @@ def _grad_rows(name, n):
 @pytest.mark.parametrize("name", ["bilateral", "median", "fastnlm"])
 def test_op_gradient_on_cuda_is_the_plain_forms(cuda, name, shape):
     """An input that requires grad launches the kernel, and its gradient for
-    x and params is the plain form's autograd.  Bilateral and median: bit
-    for bit where the backward is direct (<= 640 rows), within 1e-5 (the
-    params' within 1e-5 of their largest value: a sum over the frame in
-    another order) where it goes by strips.  Fast NLM's backward kernel
-    recomputes y and the clip's mask in the plain form's arithmetic but
-    sums the gradient in its own order, and its params gradient is a sum
-    over every pixel and offset that cancels: gx and gp within 1e-4 of
-    their largest reference value, at every frame size."""
+    x and params is the plain form's autograd.  Median: bit for bit where
+    the backward is direct (<= 640 rows), within 1e-5 where it goes by
+    strips.  Fast NLM's and the bilateral's backward kernels recompute y
+    and the clip's mask in the plain form's arithmetic but sum the gradient
+    in their own order, and their params gradient is a sum over every pixel
+    and offset that cancels: gx and gp within 1e-4 of their largest
+    reference value, at every frame size."""
     x, p = _case(shape, _grad_rows(name, shape[0]), cuda)
     g = torch.randn(shape, generator=torch.Generator(cuda).manual_seed(5),
                     device=cuda)
@@ -250,7 +251,7 @@ def test_op_gradient_on_cuda_is_the_plain_forms(cuda, name, shape):
     torch.cuda.synchronize()
     (gx, gp), (wx, wp) = grads
     assert (gp is None) == (wp is None) == (name == "median")
-    if name == "fastnlm":
+    if name in _BACKWARD_KERNELS:
         assert float((gx - wx).abs().max()) <= 1e-4 * float(wx.abs().max())
         assert float((gp - wp).abs().max()) <= 1e-4 * float(wp.abs().max())
         return
@@ -535,12 +536,12 @@ def test_opcheck_on_cuda(cuda, name):
                          ids=["direct", "strip"])
 @pytest.mark.parametrize("name", ["bilateral", "median", "fastnlm"])
 def test_op_gradient_is_what_the_autograd_function_gave(cuda, name, shape):
-    """The op's backward returns _vjp.vjp of the plain form on the saved
-    inputs, as the autograd Function it replaces did: bit for bit, direct
-    and by strips, launching the kernel once.  Fast NLM's returns its
-    backward kernel's gradient, bit for bit, which is within 1e-4 of the
-    largest value of _vjp.vjp's (test_op_gradient_on_cuda_is_the_plain_forms
-    gives the reason)."""
+    """The median's backward returns _vjp.vjp of the plain form on the
+    saved inputs, as the autograd Function it replaces did: bit for bit,
+    direct and by strips, launching the kernel once.  Fast NLM's and the
+    bilateral's return their backward kernel's gradient, bit for bit,
+    which is within 1e-4 of the largest value of _vjp.vjp's
+    (test_op_gradient_on_cuda_is_the_plain_forms gives the reason)."""
     x, p = _case(shape, _grad_rows(name, shape[0]), cuda)
     g = torch.randn(shape, generator=torch.Generator(cuda).manual_seed(6),
                     device=cuda)
@@ -552,8 +553,8 @@ def test_op_gradient_is_what_the_autograd_function_gave(cuda, name, shape):
     assert mod.launches == before + 1
     got = torch.autograd.grad(out, [xs, ps][:1 + needs[1]], g)
     want = _vjp.vjp(_PLAIN[name], mod.HALO, x, p, g, needs)
-    if name == "fastnlm":
-        kernel = kf.backward_kernel(x, p, g)[:2]
+    if name in _BACKWARD_KERNELS:
+        kernel = mod.backward_kernel(x, p, g)[:2]
         torch.cuda.synchronize()
         for a, b, k in zip(got, want, kernel):
             assert torch.equal(a, k)
@@ -615,6 +616,60 @@ def test_fastnlm_backward_kernel_takes_the_clip_tie(cuda):
     assert bool(((out == 0) | (out == 1)).any())
     want = torch.autograd.grad(out, (xs, ps), g)
     got = kf.backward_kernel(x, p, g)[:2]
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(4, 48, 48, 3), (2, 9, 200, 3),
+                                   (1, 700, 24, 1)],
+                         ids=["search", "narrow", "tall"])
+def test_bilateral_backward_kernel_is_repeatable(cuda, shape):
+    """The bilateral's backward kernel has no float atomics and sums in
+    orders fixed by the shapes: two calls, and a replay of a CUDA graph that
+    captured a third, give the same gx and gp bit for bit, 3 launches each,
+    at the search step's shape, a frame 9 rows high and one above
+    _vjp.DIRECT_ROWS; each within 1e-4 of the largest value of the plain
+    form's gradient."""
+    x, p = _case(shape, _grad_rows("bilateral", shape[0]), cuda)
+    g = torch.randn(shape, generator=torch.Generator(cuda).manual_seed(11),
+                    device=cuda)
+    backward = lambda: kb.backward_kernel(x, p, g)
+    first, second = backward(), backward()
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        backward()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = backward()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert first[2] == second[2] == captured[2] == 3
+    for a, b, c in zip(first[:2], second[:2], captured[:2]):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    want = _vjp.vjp(kb.bilateral_plain, kb.HALO, x, p, g)
+    for a, b in zip(first[:2], want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert torch.equal(first[1][:, 0], torch.zeros_like(first[1][:, 0]))
+
+
+def test_bilateral_backward_kernel_takes_the_clip_tie(cuda):
+    """Patches of exact 1 and exact 0, where y is exactly 255 or 0 and the
+    clip passes half the cotangent: the kernel recomputes y in the plain
+    form's arithmetic, so its mask is the plain form's, and gx and gp stay
+    within 1e-4 of their largest reference value."""
+    x, p = _case((3, 48, 40, 3), _grad_rows("bilateral", 3), cuda)
+    x[:, :24, :20] = 1.0
+    x[:, 24:, 20:] = 0.0
+    g = torch.randn(x.shape, generator=torch.Generator(cuda).manual_seed(12),
+                    device=cuda)
+    xs, ps = x.clone().requires_grad_(), p.clone().requires_grad_()
+    out = kb.bilateral_plain(xs, ps)
+    assert bool(((out == 0) | (out == 1)).any())
+    want = torch.autograd.grad(out, (xs, ps), g)
+    got = kb.backward_kernel(x, p, g)[:2]
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
@@ -783,19 +838,21 @@ def test_k3_trainer_equals_k1_trainer(cuda):
 def test_launch_counts_under_replay(cuda):
     """The capture's launches are a replay's (15 a kernel; fast NLM's
     backward kernel 15 applications of 4 launches, one group at the crops'
-    4 x 48^2 x 3), added to the kernels' counts on each replay; the warm-up
-    step's are kept apart, so the counts hold from the first step on."""
+    4 x 48^2 x 3; the bilateral's 15 of 3), added to the kernels' counts on
+    each replay; the warm-up step's are kept apart, so the counts hold from
+    the first step on."""
     trainer = _graph_trainer(cuda)
     pairs = _graph_pairs(2)
     kb.launches = km.launches = kf.launches = kf.backward_launches = 0
+    kb.backward_launches = 0
     trainer.search_step(*pairs[0])
     assert (kb.launches, km.launches, kf.launches) == (15, 15, 15)
-    assert kf.backward_launches == 15 * 4
+    assert (kf.backward_launches, kb.backward_launches) == (15 * 4, 15 * 3)
     trainer.search_step(*pairs[1])
     assert (kb.launches, km.launches, kf.launches) == (30, 30, 30)
-    assert kf.backward_launches == 30 * 4
+    assert (kf.backward_launches, kb.backward_launches) == (30 * 4, 30 * 3)
     want = {"bilateral": 15, "median": 15, "fastnlm": 15,
-            "fastnlm.backward": 15 * 4}
+            "fastnlm.backward": 15 * 4, "bilateral.backward": 15 * 3}
     assert trainer.graph.launches == trainer.graph.warmup_launches == want
 
 
