@@ -38,6 +38,12 @@ HALO = MAX_R
 launches = 0  # kernel launches since the caller last set it to 0
 backward_launches = 0  # backward kernel launches, the same way
 
+# csrc/bilateral.cu's kRows: output rows a thread owns.  A body's SASS holds
+# one column offset's taps, BILATERAL_ROWS (2R+1) C MUFU.EX2 (its loop over
+# the 2R+1 column offsets is not unrolled), so a thread issues (2R+1)^2 C of
+# them per output row: one exp per tap.
+BILATERAL_ROWS = 8
+
 
 def size01_to_radius(p: torch.Tensor) -> torch.Tensor:
     """[0,1] -> integer radius in {1..7} (window {3..15})."""

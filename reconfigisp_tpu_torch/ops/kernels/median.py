@@ -38,6 +38,13 @@ HALO = MAX_R  # rows of input one output row reaches
 
 launches = 0  # kernel launches since the caller last set it to 0
 
+# Integer min/max instructions of csrc/median.cu's pruned selection networks
+# for one 2x2 block of pixels and one channel, by radius (its source note;
+# tests/test_torch_windowed_median.py counts them in its mirror of the
+# networks, tests/test_torch_cuda_build.py holds the SASS to them).  Larger
+# radii bisect.
+MEDIAN_NETWORK_MINMAX = {1: 114, 2: 412, 3: 952, 4: 1724}
+
 
 def _median_fixed(x: torch.Tensor, r: int) -> torch.Tensor:
     """The median of the (2r+1)^2 window at a radius r known on the host,

@@ -4,9 +4,8 @@
 over jax.devices(): it starts `world` processes, each of which joins a
 group through a `file://` store (no port to clash under parallel test
 workers), runs fn(rank, *args) and leaves the group.  A rank that fails
-fails the call, and the others are stopped.  The tests, the dry run
-(parallel/dryrun.py) and chip_smoke.py use it; a user's run goes through
-torchrun.
+fails the call, and the others are stopped.  The tests and the dry run
+(parallel/dryrun.py) use it; a user's run goes through torchrun.
 """
 
 from __future__ import annotations

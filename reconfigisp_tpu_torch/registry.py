@@ -24,7 +24,8 @@ from reconfigisp_tpu_torch.ops import (
 # Per-op latency in ms per megapixel, for the latency-aware loss and the
 # supernet's expected latency: measured by utils/latency.calibrate(size=1024,
 # batch=1) on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, native ops
-# (bm3d is its proxy), kernels on, TF32 off (chip_smoke.py phase 8).
+# (bm3d is its proxy), kernels on, TF32 off; that call on the card measures
+# it again.
 # utils/latency.install replaces it with a table measured elsewhere; a None
 # entry leaves the latency undefined (the JAX package's table was measured
 # on a TPU and does not carry over).

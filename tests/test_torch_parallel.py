@@ -270,9 +270,10 @@ def test_yolo_shares_add_up_with_every_object_in_one_shard():
     assert abs(shares[1][0] - alone) > 1e-3 * abs(alone)
 
 
-def test_parallel_modules_and_chip_smoke_import_no_jax():
-    """parallel/mesh, dp, launch, dryrun and chip_smoke.py pull in neither
-    JAX nor the JAX package."""
+def test_parallel_modules_and_card_tools_import_no_jax():
+    """parallel/mesh, dp, launch, dryrun and the card's tools
+    (tools/time_kernels.py, tools/profile_torch_training.py) pull in
+    neither JAX nor the JAX package."""
     import subprocess
     import sys
     from pathlib import Path
@@ -282,7 +283,8 @@ def test_parallel_modules_and_chip_smoke_import_no_jax():
             "import reconfigisp_tpu_torch.parallel.mesh, "
             "reconfigisp_tpu_torch.parallel.dp, "
             "reconfigisp_tpu_torch.parallel.launch, "
-            "reconfigisp_tpu_torch.parallel.dryrun, chip_smoke; "
+            "reconfigisp_tpu_torch.parallel.dryrun, tools.time_kernels, "
+            "tools.profile_torch_training; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'reconfigisp_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

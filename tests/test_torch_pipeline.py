@@ -141,7 +141,8 @@ def test_import_pulls_in_no_jax():
             "reconfigisp_tpu_torch.ops.conditional, "
             "reconfigisp_tpu_torch.ops.cnn, reconfigisp_tpu_torch.ops.denoise, "
             "reconfigisp_tpu_torch.ops.kernels.median, "
-            "reconfigisp_tpu_torch.ops.kernels.fastnlm, chip_smoke; "
+            "reconfigisp_tpu_torch.ops.kernels.fastnlm, tools.time_kernels, "
+            "tools.profile_torch_training; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'reconfigisp_tpu' "
             "or m.startswith('reconfigisp_tpu.')]; print(bad); "

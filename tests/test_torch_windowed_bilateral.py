@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import BILATERAL_ROWS
 from reconfigisp_tpu_torch.ops.kernels import bilateral as kb
 from torch_one_thread import one_thread  # noqa: F401  (autouse)
 
@@ -93,12 +92,12 @@ def test_bilateral_kernel_arithmetic_within_tolerance(c, kind, sigma01):
 
 
 def test_bilateral_rows_match_the_kernel_source():
-    """chip_smoke.py's count of MUFU.EX2 per body follows the rows a thread
-    owns in csrc/bilateral.cu."""
+    """BILATERAL_ROWS, by which tests/test_torch_cuda_build.py counts the
+    MUFU.EX2 of each body, is the rows a thread owns in csrc/bilateral.cu."""
     src = (Path(kb.__file__).resolve().parents[2] / "csrc" / "bilateral.cu"
            ).read_text()
     assert re.search(r"constexpr int kRows = (\d+);", src)[1] == str(
-        BILATERAL_ROWS)
+        kb.BILATERAL_ROWS)
 
 
 

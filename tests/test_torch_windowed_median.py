@@ -13,7 +13,6 @@ import torch
 from reconfigisp_tpu.ops import denoise as jdenoise
 from reconfigisp_tpu.ops.pallas_kernels import median_pallas
 
-from chip_smoke import MEDIAN_NETWORK_MINMAX
 from reconfigisp_tpu_torch import registry
 from reconfigisp_tpu_torch.ops import denoise
 from reconfigisp_tpu_torch.ops.kernels import fastnlm as kf
@@ -241,9 +240,9 @@ def _median_test_image(kind, c):
 @pytest.mark.parametrize("radius", range(1, _NETWORK_MAX_R + 1))
 def test_median_network_counts(radius):
     """The min/max per 2x2 block and channel that survive the folding and
-    pruning, as csrc/median.cu's note states them and chip_smoke.py's phase
-    2 holds the SASS to them."""
-    assert _network_counts(radius) == MEDIAN_NETWORK_MINMAX[radius]
+    pruning, as csrc/median.cu's note states them and
+    tests/test_torch_cuda_build.py holds the SASS to them."""
+    assert _network_counts(radius) == km.MEDIAN_NETWORK_MINMAX[radius]
 
 
 @pytest.mark.parametrize("kind", ["noise", "edge", "saturated", "constant",
