@@ -36,8 +36,9 @@
 // Every loop is unrolled on compile-time indices and each comparator is one
 // unsigned min and one max.  The compiler folds every comparator against a
 // pad and drops every one whose outputs are not read.  Integer min/max per
-// 2x2 block and channel (tests/test_torch_windowed.py mirrors the networks
-// and counts them; chip_smoke.py counts them in the SASS):
+// 2x2 block and channel (tests/test_torch_windowed_median.py mirrors the
+// networks and counts them; tests/test_torch_cuda_build.py holds the SASS
+// to them):
 //   r = 1, K =  9:  114, 28.5 per value (one window alone:   40)
 //   r = 2, K = 25:  412, 103 per value                      (202)
 //   r = 3, K = 49:  952, 238 per value                      (590)
@@ -57,11 +58,11 @@
 // Bound on the H100.  The function reads and writes each value once and
 // needs at least K - 1 comparisons per pixel and channel: at r = 4 that is
 // 80 comparisons against 8 bytes, about even between the FP32 rate and the
-// memory rate (chip_smoke.median_bound_ms).  The networks do 431 integer
-// min/max per value at r = 4, which run at 64 per clock per SM, so that
-// pipe bounds the kernel.  The first kernel bisected at every radius, 32 K
-// compares and 32 K shared loads per value, and the shared-memory port
-// bounded it at 200 times the function's bound.  Sorting column windows
+// memory rate (benchmark/lib/counts.py, kernel_bound_s).  The networks do
+// 431 integer min/max per value at r = 4, which run at 64 per clock per
+// SM, so that pipe bounds the kernel.  The first kernel bisected at every
+// radius, 32 K compares and 32 K shared loads per value, and the
+// shared-memory port bounded it at 200 times the function's bound.  Sorting column windows
 // once per block and merging them with pruned networks (Adams, ACM TOG
 // 40(4), 2021) would share more work between neighbouring pixels.
 //
@@ -345,5 +346,262 @@ extern "C" int median_forward(const float* x, const float* params, float* out,
   } else {
     return cudaErrorInvalidValue;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ backward
+//
+// The gradient of the function above for a cotangent g of its output, in
+// two kernels that never use float atomics; params get exactly 0, since
+// the radius comes from a floor.  It replaces no TPU kernel: the JAX package
+// differentiates _median_jnp (_median_taps' tie-split form) under jax.vjp,
+// and its custom_vjp has no backward kernel.  It replaces the plain form's
+// autograd on the card (ops/kernels/_vjp.py), which under a CUDA graph
+// capture stacked the taps of all seven radii, 679, with a kthvalue, an
+// equality mask and a sum each, and ran their backward: a slice's zero
+// fill, copy and add a tap.
+//
+// Per image, with the window |d|_inf <= r about p and its tap q = R(p + d)
+// (R the reflection), m_p the (K/2 + 1)-th smallest of the K = (2r+1)^2
+// taps before the clip, c_p the number of taps equal to m_p under float ==
+// (so +0 and -0 tie) and k_p the clip's mask (1 inside (0, 1), 1/2 at an
+// exact 0 or 1, as ops/nn.clip's maximum and minimum split a tie, 0
+// outside):
+//   A_p  = g_p k_p / c_p                        (an IEEE division)
+//   gx_s = sum of A_p over every (p, d) with R(p + d) = s and x_s == m_p.
+//
+//   stats   a block a 16 x 16 tile of one channel, a thread a value: the
+//           tile's keys and an R halo staged in shared memory; m_p by the
+//           forward's selection networks at r <= 4 (median_network, a 2x2
+//           block of pixels each for a quarter of the threads) and by its
+//           bisection above (median_bisect, a pixel a thread); c_p by
+//           comparing the K taps with m_p; -> (m_p, A_p), a float2 a
+//           value.  Each image's first block writes its gp, 0.
+//   gather  kQuarters threads a value, each over a quarter of the K offsets
+//           in row-major order.  The scatter of A_p onto its taps becomes a
+//           gather at the value's reflection preimages p, R(p + d) = s:
+//           along each axis s - d, and where s is within r of an edge also
+//           -s - d (s >= 1) and 2 (n - 1) - s - d (s <= n - 2).  A preimage
+//           adds its A_p where x_s == m_p.  The quarters join as
+//           ((q0 + q2) + (q1 + q3)).
+// Every sum runs in an order fixed by the shapes, so two calls, and a
+// captured replay, agree bit for bit; a value that takes a single share
+// gets A_p exactly, as the plain form's autograd gives it.  Like the
+// forward, both kernels read the radius from params[0] on the device and
+// switch once into bodies templated on R (and on C in the gather), so one
+// capture serves every radius.  The stats pass takes one channel a block,
+// so C is only a stride there and one kernel serves C = 1 and 3.  The grids
+// follow the frame: at the search step's 4 x 48^2 x 3 the stats pass has
+// 108 blocks of 256 threads and the gather 432, where the forward's 32 x 32
+// tiles give 16 blocks; a 12 MP frame takes the same path.
+//
+// Bound on the H100 (tools/time_kernels.py, BACKWARD_BOUNDS): x and g read
+// and gx written once; the selection's K - 1 comparisons a value again (the
+// op keeps no residuals), K to count the ties and K to find the windows
+// whose median the value is, 3 K - 1 a value.  At the search step's shape
+// and r = 4 that is about 0.1 us, bytes and comparisons about even; launch
+// and latency bound the two passes there instead (27,648 values, about 7
+// warps an SM).  PERF.md gives their times beside the plain autograd's.
+
+namespace {
+
+constexpr int kStatsSide = 16;                          // stats: a tile's pixels a side
+constexpr int kStatsThreads = kStatsSide * kStatsSide;  // a thread a value
+constexpr int kGatherThreads = 256;                     // gather: kQuarters threads a value
+constexpr int kQuarters = 4;
+
+// The batch's radius from params[0], rounded as the forward rounds it.
+__device__ __forceinline__ int batch_radius(const float* __restrict__ params) {
+  return static_cast<int>(fminf(fmaxf(floorf(__fmul_rn(params[0], 7.f)), 0.f), 6.f)) + 1;
+}
+
+// The cotangent through ops/nn.clip(m, 0, 1): whole inside, halved at an
+// exact bound, where maximum or minimum splits a tie, 0 outside.
+__device__ __forceinline__ float clip_cotangent(float g, float m) {
+  return (m > 0.f && m < 1.f) ? g : (m == 0.f || m == 1.f) ? __fmul_rn(g, 0.5f) : 0.f;
+}
+
+// One channel's 16 x 16 tile with its top-left pixel at (oy0, ox0) -> (m, A)
+// of each of its values.
+template <int R>
+__device__ __forceinline__ void stats_body(const float* __restrict__ img,
+                                           const float* __restrict__ gimg,
+                                           float2* __restrict__ ma, uint32_t* tile,
+                                           uint32_t* medk, int h, int w, int C, int c,
+                                           int oy0, int ox0) {
+  constexpr int kSide = kStatsSide + 2 * R;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kSide * kSide; i += kStatsThreads) {
+    const int ty = i / kSide, tx = i % kSide;
+    tile[ty * kPitch + tx] = float_key(
+        img[(static_cast<size_t>(reflect(oy0 - R + ty, h)) * w + reflect(ox0 - R + tx, w)) * C +
+            c]);
+  }
+  __syncthreads();
+  const int ty = tid / kStatsSide, tx = tid % kStatsSide;
+  const uint32_t* own = tile + (ty + R) * kPitch + tx + R;  // this value's tap at d = 0
+  uint32_t key;
+  if constexpr (R <= kMaxNetworkR) {
+    if (tid < kStatsThreads / 4) {
+      const int by = 2 * (tid / (kStatsSide / 2)), bx = 2 * (tid % (kStatsSide / 2));
+      uint32_t med[2][2];
+      median_network<1, R>(tile + (by + R) * kPitch + bx + R, kPitch, med);
+#pragma unroll
+      for (int y = 0; y < 2; ++y) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) medk[(by + y) * kStatsSide + bx + x] = med[y][x];
+      }
+    }
+    __syncthreads();
+    key = medk[tid];
+  } else {
+    uint32_t lo[1];
+    median_bisect<1, R>(own, kPitch, lo);
+    key = lo[0];
+  }
+  const int py = oy0 + ty, px = ox0 + tx;
+  if (py >= h || px >= w) return;
+  const float m = key_float(key);
+  int count = 0;
+#pragma unroll 1
+  for (int dy = -R; dy <= R; ++dy) {
+#pragma unroll
+    for (int dx = -R; dx <= R; ++dx) count += key_float(own[dy * kPitch + dx]) == m;
+  }
+  const size_t v = (static_cast<size_t>(py) * w + px) * C + c;
+  ma[v] = make_float2(m, __fdiv_rn(clip_cotangent(gimg[v], m), static_cast<float>(count)));
+}
+
+// blockIdx.x: a 16 x 16 tile of image blockIdx.y, channel blockIdx.z.
+__global__ void __launch_bounds__(kStatsThreads)
+median_bwd_stats(const float* __restrict__ x, const float* __restrict__ params,
+                 const float* __restrict__ g, float2* __restrict__ ma, float* __restrict__ gp,
+                 int h, int w, int C) {
+  __shared__ uint32_t tile[(kStatsSide + 2 * kMaxR) * kPitch];
+  __shared__ uint32_t medk[kStatsThreads];
+  const int n = blockIdx.y, c = blockIdx.z;
+  const int tiles_x = (w + kStatsSide - 1) / kStatsSide;
+  const int oy0 = blockIdx.x / tiles_x * kStatsSide, ox0 = blockIdx.x % tiles_x * kStatsSide;
+  const size_t plane = static_cast<size_t>(n) * h * w * C;
+  if (blockIdx.x == 0 && c == 0 && threadIdx.x == 0) gp[n] = 0.f;
+  switch (batch_radius(params)) {  // uniform over the grid
+#define MEDIAN_STATS(R)                                                                \
+  case R:                                                                              \
+    stats_body<R>(x + plane, g + plane, ma + plane, tile, medk, h, w, C, c, oy0, ox0); \
+    break;
+    MEDIAN_STATS(1) MEDIAN_STATS(2) MEDIAN_STATS(3) MEDIAN_STATS(4)
+    MEDIAN_STATS(5) MEDIAN_STATS(6)
+    default: MEDIAN_STATS(7)
+#undef MEDIAN_STATS
+  }
+}
+
+// The value's gather over its quarter of the offsets -> its part of gx.
+template <int C, int R>
+__device__ __forceinline__ float gather_body(const float* __restrict__ img,
+                                             const float2* __restrict__ ma, int h, int w,
+                                             int v, int quarter) {
+  constexpr int kSide = 2 * R + 1, kCount = kSide * kSide;
+  constexpr int kChunk = (kCount + kQuarters - 1) / kQuarters;
+  const int c = v % C, sx = v / C % w, sy = v / C / w;
+  const float xs = img[v];
+  const int k1 = min((quarter + 1) * kChunk, kCount);
+  float acc = 0.f;
+  for (int k = quarter * kChunk; k < k1; ++k) {
+    const int dy = k / kSide - R, dx = k % kSide - R;
+    // each p with R(p + d) = s: s - d, and the reflections -s - d (s >= 1)
+    // and 2 (n - 1) - s - d (s <= n - 2)
+    const int rows[3] = {sy - dy, sy >= 1 ? -sy - dy : -1, sy <= h - 2 ? 2 * h - 2 - sy - dy : -1};
+    const int cols[3] = {sx - dx, sx >= 1 ? -sx - dx : -1, sx <= w - 2 ? 2 * w - 2 - sx - dx : -1};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (rows[i] < 0 || rows[i] >= h) continue;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if (cols[j] < 0 || cols[j] >= w) continue;
+        const float2 q = ma[(static_cast<size_t>(rows[i]) * w + cols[j]) * C + c];
+        if (q.x == xs) acc = __fadd_rn(acc, q.y);
+      }
+    }
+  }
+  return acc;
+}
+
+// blockIdx.x: kGatherThreads / kQuarters values of image blockIdx.y.
+template <int C>
+__global__ void __launch_bounds__(kGatherThreads)
+median_bwd_gather(const float* __restrict__ x, const float* __restrict__ params,
+                  const float2* __restrict__ ma, float* __restrict__ gx, int h, int w) {
+  const int n = blockIdx.y, tid = threadIdx.x;
+  const size_t plane = static_cast<size_t>(n) * h * w * C;
+  const int v = (blockIdx.x * kGatherThreads + tid) / kQuarters;
+  const int quarter = tid % kQuarters;
+  const bool on = v < h * w * C;  // every lane joins the shuffles below
+  float acc = 0.f;
+  if (on) {
+    switch (batch_radius(params)) {
+#define MEDIAN_GATHER(R)                                                   \
+  case R:                                                                  \
+    acc = gather_body<C, R>(x + plane, ma + plane, h, w, v, quarter);      \
+    break;
+      MEDIAN_GATHER(1) MEDIAN_GATHER(2) MEDIAN_GATHER(3) MEDIAN_GATHER(4)
+      MEDIAN_GATHER(5) MEDIAN_GATHER(6)
+      default: MEDIAN_GATHER(7)
+#undef MEDIAN_GATHER
+    }
+  }
+  acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, 2));
+  acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, 1));
+  if (on && quarter == 0) gx[plane + v] = acc;
+}
+
+int stats_tiles(int h, int w) {
+  return ((h + kStatsSide - 1) / kStatsSide) * ((w + kStatsSide - 1) / kStatsSide);
+}
+
+int gather_blocks(int h, int w, int c) {
+  const long long threads = static_cast<long long>(h) * w * c * kQuarters;
+  return static_cast<int>((threads + kGatherThreads - 1) / kGatherThreads);
+}
+
+// The median has no launch groups: `group` is 1.  A frame's thread indices
+// stay within int.
+bool backward_operands(int n, int h, int w, int c, int group) {
+  return n >= 1 && n <= 65535 && h > kMaxR && w > kMaxR && (c == 1 || c == 3) &&
+         group == 1 && static_cast<long long>(h) * w * c * kQuarters < (1LL << 31);
+}
+
+}  // namespace
+
+// Bytes of scratch median_backward needs at these operands, (m, A) a value;
+// 0 for operands it does not take.
+extern "C" long long median_backward_scratch(int n, int h, int w, int c, int group) {
+  if (!backward_operands(n, h, w, c, group)) return 0;
+  return static_cast<long long>(sizeof(float2)) * n * h * w * c;
+}
+
+// x, g, gx: (n, h, w, c) float32 contiguous; params, gp: (n, 1) float32, of
+// which only params[0] is read; scratch: median_backward_scratch(n, h, w, c,
+// 1) bytes, 8-byte aligned; group: 1.  Launches on `stream`, stores the
+// number of launches in *launches and returns the CUDA error code (0 on
+// success).
+extern "C" int median_backward(const float* x, const float* params, const float* g,
+                               float* gx, float* gp, void* scratch, int n, int h, int w,
+                               int c, int group, int* launches, void* stream) {
+  *launches = 0;
+  if (!backward_operands(n, h, w, c, group)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float2* ma = static_cast<float2*>(scratch);
+  const dim3 stats(stats_tiles(h, w), n, c);
+  median_bwd_stats<<<stats, kStatsThreads, 0, st>>>(x, params, g, ma, gp, h, w, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 gather(gather_blocks(h, w, c), n);
+  if (c == 3) {
+    median_bwd_gather<3><<<gather, kGatherThreads, 0, st>>>(x, params, ma, gx, h, w);
+  } else {
+    median_bwd_gather<1><<<gather, kGatherThreads, 0, st>>>(x, params, ma, gx, h, w);
+  }
+  *launches = 2;
   return static_cast<int>(cudaGetLastError());
 }

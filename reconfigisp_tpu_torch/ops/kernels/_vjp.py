@@ -12,13 +12,12 @@ on the card and the plain form on the CPU.
 
 The JAX package has no backward kernel: its custom_vjp differentiates the
 jnp form.  Here the forward op's autograd keeps x and params, and its
-backward is the backward op.  Where the kernel has a backward kernel
-(fast-NLM's and the bilateral's, csrc/fastnlm.cu and csrc/bilateral.cu),
-the op's CUDA implementation launches it and counts its launches under
-`<name>.backward`; otherwise (the median's), and on the CPU always, the
-implementation recomputes the plain form from x and params under autograd
-and returns that form's gradient: directly for a frame of at
-most DIRECT_ROWS rows, and above that strip by strip (`strip_vjp`), which
+backward is the backward op.  Its CUDA implementation launches the
+kernel's backward kernel (csrc/<name>.cu, <name>_backward) and counts its
+launches under `<name>.backward`, so the card runs no plain backward.  Its
+CPU implementation recomputes the plain form from x and params under
+autograd and returns that form's gradient: directly for a frame of at most
+DIRECT_ROWS rows, and above that strip by strip (`strip_vjp`), which
 bounds the plain form's tap residuals at STRIP + 2 halo rows.  On the same
 saved inputs the direct gradient is the plain form's own, bit for bit: the
 plain forms pad by slices and flips (ops/nn.reflect), so their backward
@@ -39,8 +38,7 @@ them to the kernels' counts on each replay (`count_launches`).
 
 The backward op's body is the span `<name>.backward` (utils/tracing.py), on
 the device for a CUDA input: in a captured step it times each windowed op's
-backward on every replay, the backward kernel's launches or the recompute
-of the plain form.
+backward kernel on every replay.
 """
 
 from __future__ import annotations
@@ -185,20 +183,18 @@ def _autograd_on():
 
 
 def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
-                on_launch: Callable[[int], None],
-                backward_kernel: Optional[tuple] = None):
+                on_launch: Callable[[int], None], backward_kernel: tuple):
     """Define reconfigisp::<name> and its backward op (module docstring).
     `on_launch(n)` adds n launches to the kernel's count: called with 1
     after each launch, and nowhere else (not on the CPU, not under fake
     tensors; within tally_launches() the launch is tallied there instead),
-    and with a replay's tally by count_launches.  `backward_kernel`, where
-    the kernel has one, is (launch, on_launch): launch(x, params, g) ->
-    (gx, gp, launches) runs it for a CUDA input in place of `vjp`, and its
-    launches are counted as the forward's, under `<name>.backward`.  -> the
-    forward op."""
+    and with a replay's tally by count_launches.  `backward_kernel` is
+    (launch, on_launch): launch(x, params, g) -> (gx, gp, launches) runs the
+    backward kernel for a CUDA input in place of `vjp`, and its launches are
+    counted as the forward's, under `<name>.backward`.  -> the forward
+    op."""
     _on_launch[name] = on_launch
-    if backward_kernel is not None:
-        _on_launch[f"{name}.backward"] = backward_kernel[1]
+    _on_launch[f"{name}.backward"] = backward_kernel[1]
 
     @torch.library.custom_op(f"reconfigisp::{name}", mutates_args=())
     def forward(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
@@ -219,7 +215,7 @@ def windowed_op(name: str, plain: Plain, n_params: int, halo: int,
                  need_x: bool, need_p: bool) -> tuple[torch.Tensor,
                                                       torch.Tensor]:
         with tracing.span(f"{name}.backward", device=x.is_cuda):
-            if x.is_cuda and backward_kernel is not None:
+            if x.is_cuda:
                 gx, gp, launches = backward_kernel[0](x, params, g)
                 _launched(f"{name}.backward", launches)
                 gx, gp = (gx if need_x else None), (gp if need_p else None)

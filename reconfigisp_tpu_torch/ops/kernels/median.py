@@ -7,13 +7,19 @@ CUDA tensor and counts the launch in `launches`, and for a tensor on the CPU
 computes `median_plain`, the form of
 reconfigisp_tpu/ops/denoise.py:_median_jnp, which is also the kernel's
 reference on the card; `median` calls the op, except for a CPU input that
-autograd differentiates, which runs median_plain itself.  Both select the exact middle tap, so they agree bit
-for bit: the kernel by pruned selection networks in registers, shared by
-each 2x2 block of pixels, at radii up to 4, and by a bisection on the
-float's order-preserving key above (tests/test_torch_windowed_median.py
-emulates both on the CPU).  The op's backward is median_plain's gradient, so a CUDA
-input that requires grad launches the kernel too.  The params set only the
-radius, an integer, so no gradient reaches them, on either path.
+autograd differentiates, which runs median_plain itself.  Both select the
+exact middle tap, so they agree bit for bit: the kernel by pruned selection
+networks in registers, shared by each 2x2 block of pixels, at radii up to
+4, and by a bisection on the float's order-preserving key above
+(tests/test_torch_windowed_median.py emulates both on the CPU).  The op's
+backward is median_plain's gradient: on the card a backward kernel of its
+own (csrc/median.cu's median_backward, `backward_launches` its launches),
+which selects the median again and sums the tie-split cotangent in another
+order, within 1e-4 of the largest gradient value
+(tests/test_torch_median_backward.py emulates it on the CPU); on the CPU
+the plain form's autograd (_vjp.vjp).  So a CUDA input that requires grad
+launches the forward kernel too.  The params set only the radius, an
+integer, so no gradient reaches them, on either path.
 
 x (N, H, W, C) float32 in [0, 1]; params (N, 1) in [0, 1]: [size01].  The
 radius clip(floor(7 size01), 0, 6) + 1 comes from params[0, 0] for the whole
@@ -37,6 +43,7 @@ MAX_R = _build.MAX_R
 HALO = MAX_R  # rows of input one output row reaches
 
 launches = 0  # kernel launches since the caller last set it to 0
+backward_launches = 0  # backward kernel launches, the same way
 
 # Integer min/max instructions of csrc/median.cu's pruned selection networks
 # for one 2x2 block of pixels and one channel, by radius (its source note;
@@ -98,7 +105,19 @@ def _count(n: int) -> None:
     launches += n
 
 
-op = _vjp.windowed_op("median", median_plain, 1, HALO, _count)
+def _count_backward(n: int) -> None:
+    global backward_launches
+    backward_launches += n
+
+
+def backward_kernel(x: torch.Tensor, params: torch.Tensor, g: torch.Tensor):
+    """The backward kernel on CUDA tensors -> (gx, gp, launches); gp is
+    exactly 0."""
+    return _build.launch_backward("median", x, params, g, 1)
+
+
+op = _vjp.windowed_op("median", median_plain, 1, HALO, _count,
+                      (backward_kernel, _count_backward))
 
 
 def median(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:

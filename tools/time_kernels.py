@@ -20,12 +20,12 @@ decay: 50.5):
     largest gap to the plain form;
   - "<op> backward": one application captured and replayed the same way:
     the op's backward kernel (ops/kernels/<op>.py backward_kernel) and its
-    launches, where the op has one (kernel_ms=none where it has not: the
-    median's backward is the plain form's); plain_ms, _vjp.vjp of the
-    plain form on its capture-safe route (every tap or offset to MAX_R);
-    bound_ms from BACKWARD_BOUNDS below (none without one); gx_err and
-    gp_err, the kernel's largest gap to the plain form's eager gradient
-    over the largest reference value.
+    launches; plain_ms, _vjp.vjp of the plain form on its capture-safe
+    route (every tap or offset to MAX_R; the median's seven radii);
+    bound_ms from BACKWARD_BOUNDS below; gx_err and gp_err, the kernel's
+    largest gap to the plain form's eager gradient over the largest
+    reference value (gp_err none for the median, whose params take no
+    gradient).
 With --profile, each of a backward kernel's kernels' device time an
 application (torch.profiler over the replays).  The defaults are the
 serving path's tile batch; the search step's crops are --shape 4,48,48,3
@@ -87,9 +87,24 @@ def fastnlm_backward_s(shape, s: int) -> float:
                     flops + 28 * distinct, distinct)
 
 
+def median_backward_s(shape, r: int) -> float:
+    """Least seconds for the median's gradient for x.  Bytes: x, params and
+    the cotangent read and gx and gp written once.  Operations, as
+    counts.median_ops counts them: the forward's K - 1 comparisons again to
+    find each window's median (the op keeps no residuals), K to count the
+    taps tied with it, and K to find the windows whose median each value
+    is: 3 K - 1 a value, K = (2r+1)^2."""
+    n, h, w, c = shape
+    flops, _ = counts.median_ops(shape, r)
+    taps = (2 * r + 1) ** 2 * n * h * w * c
+    return counts._bound_s(3 * n * h * w * c * 4 + 2 * n * 4,
+                           flops + 2 * taps, 0)
+
+
 # op -> its backward's bound in seconds from (shape, window or search
-# radius); the median has no backward kernel yet
+# radius)
 BACKWARD_BOUNDS = {"bilateral": bilateral_backward_s,
+                   "median": median_backward_s,
                    "fastnlm": fastnlm_backward_s}
 
 
@@ -184,23 +199,18 @@ def time_op(op: str, x, g, radius: int, args) -> None:
         plain_replay = graphed(lambda: _vjp.vjp(plain, mod.HALO, x, p, g,
                                                 needs))
     plain_ms = event_ms(plain_replay, max(1, args.reps // 10))
-    backward = getattr(mod, "backward_kernel", None)
-    if backward is None:
-        line(f"{op} backward", shape=shape, radius=radius, **search,
-             kernel_ms="none", plain_ms=f"{plain_ms:.5f}", bound_ms="none")
-        return
-    got = backward(x, p, g)
-    want = _vjp.vjp(plain, mod.HALO, x, p, g)
-    errs = [float((a - b).abs().max() / b.abs().max())
-            for a, b in zip(got[:2], want)]
-    replay = graphed(lambda: backward(x, p, g))
+    got = mod.backward_kernel(x, p, g)
+    want = _vjp.vjp(plain, mod.HALO, x, p, g, needs)
+    errs = [f"{float((a - b).abs().max() / b.abs().max()):.3e}"
+            if b is not None else "none" for a, b in zip(got[:2], want)]
+    replay = graphed(lambda: mod.backward_kernel(x, p, g))
     kernel_ms = event_ms(replay, args.reps)
     bound_ms = 1e3 * BACKWARD_BOUNDS[op](shape, r)
     line(f"{op} backward", shape=shape, radius=radius, **search,
          kernel_ms=f"{kernel_ms:.5f}", launches=got[2],
          plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
          roofline_pct=f"{100 * bound_ms / kernel_ms:.3f}",
-         gx_err=f"{errs[0]:.3e}", gp_err=f"{errs[1]:.3e}")
+         gx_err=errs[0], gp_err=errs[1])
     if args.profile:
         split = kernel_breakdown(op, replay, args.reps)
         line(f"{op} backward kernels", radius=radius,
